@@ -1,0 +1,136 @@
+"""The port's checkpoint reader and serving path against pathtracker_tpu:
+the pure-Python msgpack reader against flax on the in-tree checkpoints, and
+make_inference_fn on the trained chainE weights against the JAX serving
+function with --bf16 semantics."""
+
+import glob
+import os
+import types
+
+import numpy as np
+import pytest
+import torch
+from flax import serialization
+
+from pathtracker_torch import engine as tengine
+from pathtracker_torch.data.pathtracker import render_batch
+from pathtracker_torch.eval import serve as tserve
+from pathtracker_torch.models import registry as tregistry
+from pathtracker_torch.train import checkpoint as tckpt
+from pathtracker_tpu.eval import serve as jserve
+from pathtracker_tpu.train.checkpoint import load_params as jload_params
+from pathtracker_tpu.train.loop import init_model
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SAVED = os.path.join(ROOT, "results_conv", "64_1_14", "chainE", "saved_models")
+CHAINE = os.path.join(SAVED, "model_val_acc_0072_epoch_15_checkpoint.pth.tar")
+
+
+def _assert_same_tree(ours, theirs, path="root"):
+    if isinstance(theirs, dict):
+        assert isinstance(ours, dict) and set(ours) == set(theirs), path
+        for k in theirs:
+            _assert_same_tree(ours[k], theirs[k], f"{path}/{k}")
+    elif isinstance(theirs, np.ndarray):
+        assert isinstance(ours, np.ndarray), path
+        assert ours.dtype == theirs.dtype and ours.shape == theirs.shape, path
+        np.testing.assert_array_equal(ours, theirs, err_msg=path)
+    else:
+        assert type(ours) is type(theirs) and ours == theirs, path
+
+
+@pytest.mark.parametrize("name", sorted(os.path.basename(p) for p in
+                                        glob.glob(os.path.join(SAVED, "*.tar"))))
+def test_msgpack_reader_matches_flax(name):
+    with open(os.path.join(SAVED, name), "rb") as f:
+        blob = f.read()
+    _assert_same_tree(tckpt.unpackb(blob), serialization.msgpack_restore(blob))
+
+
+def test_msgpack_reader_scalars_and_errors():
+    import msgpack
+
+    value = {"i": [0, 127, 128, 65536, 2 ** 40, -1, -33, -2 ** 40], "f": 1.5,
+             "s": "x" * 40, "b": b"\x00\x01", "n": None, "t": True, "F": False,
+             "m": {str(i): i for i in range(20)}, "l": list(range(20))}
+    assert tckpt.unpackb(msgpack.packb(value, use_bin_type=True)) == value
+    with pytest.raises(ValueError, match="trailing"):
+        tckpt.unpackb(msgpack.packb(1) + b"\x00")
+    with pytest.raises(ValueError, match="truncated"):
+        tckpt.unpackb(msgpack.packb("abc")[:-1])
+    with pytest.raises(ValueError, match="ext type 5"):
+        tckpt.unpackb(msgpack.packb(msgpack.ExtType(5, b"zz")))
+
+
+def test_chaine_weights_load_strictly():
+    params = tckpt.load_params(CHAINE)
+    assert set(params) == set(jload_params(CHAINE))
+    model = tserve.build(ckpt=CHAINE, length=4, bf16=True, device="cpu")
+    assert model.use_fused and model.dimensions == 32
+    got = model.state_dict()["unit1.w_exc"].numpy()
+    np.testing.assert_array_equal(got, params["w_exc"].transpose(3, 2, 0, 1))
+
+
+def test_serving_chaine_matches_jax_bf16():
+    """B=2, T=8 clips rendered from a seed as chainE was trained (dist 14,
+    speed 1, 2-pixel dots). JAX --bf16 serves the eager mixed cell (its
+    fused default is off); the port serves the fused cell (plain kernel
+    versions here). Gap: bf16 roundings of the conv outputs flip where XLA
+    and oneDNN sum in other orders, and the trained recurrence carries the
+    flips on; at these inputs (``python tests/torch_parity_gaps.py
+    --length 8 --batch 2``) port-fused vs JAX-eager measured 4.3e-5 on
+    logits, port-eager vs JAX-eager 1.3e-3 and JAX's own fused vs eager
+    3.1e-4. Held to 5e-3 on logits (2e-3 on scores), where an equation
+    error moves them by O(0.1)."""
+    length = 8
+    x, _ = render_batch(0, 2, timesteps=length, dot_size=2)
+    margs = types.SimpleNamespace(model="InT", seed=0, dimensions=32,
+                                  fb_kernel_size=7, algo="bptt", penalty=False,
+                                  optical_flow=False, pretrained=False,
+                                  slowfast_cfg=None, bf16=True)
+    jmodel, variables = init_model(margs, length)
+    jparams = jload_params(CHAINE, template=variables["params"])
+    want = np.asarray(jserve.make_inference_fn(jmodel, "InT", jparams)(x))
+    want_logit = np.asarray(jserve.make_inference_fn(jmodel, "InT", jparams,
+                                                     probs=False)(x))
+
+    model = tserve.build(ckpt=CHAINE, length=length, bf16=True, device="cpu")
+    got = tserve.make_inference_fn(model, "InT")(x)
+    got_logit = tserve.make_inference_fn(model, "InT", probs=False)(torch.from_numpy(x))
+    assert got.shape == (2,) and got.dtype == torch.float32
+    np.testing.assert_allclose(got_logit.numpy(), want_logit, rtol=0, atol=5e-3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-3)
+
+
+def test_torch_pickle_checkpoints_wait_for_training(tmp_path):
+    path = tmp_path / "ref.pth.tar"
+    torch.save({"state_dict": {}}, path)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        tckpt.load_checkpoint(str(path))
+
+
+def test_registry_and_engine_surface():
+    assert tregistry.family("InT") == "recurrent"
+    assert tregistry.family("r3d") == "torchvision"
+    assert tregistry.needs_coord_channels("nostride_r3d_cc")
+    assert not tregistry.needs_coord_channels("nostride_video_cc_small")
+    for name in ("InT_no_inh", "InT_tanh", "InT_only_add"):
+        m = tregistry.model_selector(name, timesteps=2, fb_kernel_size=3,
+                                     dimensions=8, device="cpu")
+        assert not m.use_fused
+    for name in ("fc", "hgru", "r3d", "slowfast", "timesformer"):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            tregistry.model_selector(name, timesteps=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="Model not found"):
+        tregistry.model_selector("nope", timesteps=2, device="cpu")
+    args = types.SimpleNamespace(model="InT", bf16=True, dimensions=8,
+                                 fb_kernel_size=3)
+    m = tengine.model_selector(args, 2, device="cpu")
+    assert m.mxu == torch.bfloat16 and m.use_fused is False  # 8 channels
+    with pytest.raises(NotImplementedError, match="RBP"):
+        tengine.model_selector(types.SimpleNamespace(model="InT", algo="rbp"), 2,
+                               device="cpu")
+    x = torch.zeros(1, 3, 2, 4, 4)
+    with torch.no_grad():
+        logit, states, gates = tengine.model_step(m, x, "InT", test=True)
+    assert states.shape == (1, 2, 1, 4, 4) and gates.shape == (1, 2, 8, 4, 4)

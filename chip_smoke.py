@@ -1,30 +1,47 @@
 #!/usr/bin/env python3
-"""Drive pathtracker_torch's serving path on one CUDA card (an H100) and hold
-every CUDA kernel on that path against its plain PyTorch version.
+"""Drive pathtracker_torch's serving and training paths on one CUDA card (an
+H100) and hold every CUDA kernel on those paths against its plain PyTorch
+version.
 
     python3 chip_smoke.py
 
 Phases, printed in order; any failure exits non-zero before the last line:
   1. the card's name and power limit (nvidia-smi);
   2. build the kernels from pathtracker_torch/csrc (one nvcc per source, all
-     started together) and print the build seconds;
-  3. K1, K2 and K3 at the serving width (batch 128 x 32 x 32 = 131,072 rows
-     of 32 channels) on seeded inputs: each kernel, through its wrapper,
-     against its plain version on the card, with the max error and the
-     stated tolerance; the device time of kernel and plain version (CUDA
+     started together); print the build seconds and each kernel's registers,
+     shared memory and spill bytes (ptxas -v);
+  3. K1, K2 and K3 forward at the main paths' width (batch 128 x 32 x 32 =
+     131,072 rows of 32 channels) on seeded inputs: each kernel, through its
+     wrapper, against its plain version on the card, with the max error and
+     the stated tolerance; the device time of kernel and plain version (CUDA
      graph of 20 calls, replayed, timed by CUDA events) and the wrapper's
      time per call from Python; the bound (the larger of bytes over the
      memory rate and operations over the peak rate), from these inputs;
   4. load the in-tree chainE checkpoint with the port's reader and serve 3
      requests of 128 uint8 clips (T=64), rendered from seeds as chainE was
      trained (dist 14, speed 1, 2-pixel dots), through make_inference_fn
-     with InT(32, k=7, bf16, fused): finite scores in [0, 1], each kernel's
-     launch count up by exactly T per request, agreement with the same
-     weights on the eager mixed cell (fused=False) within stated
+     with InT(32, k=7, bf16, fused): finite scores in [0, 1], each forward
+     kernel's launch count up by exactly T per request, agreement with the
+     same weights on the eager mixed cell (fused=False) within stated
      tolerances, accuracy against the clips' labels well above chance;
      both mixed paths' distance to the f32 parity path; p50 request
      latency and clips/s of both mixed paths;
-  5. one JSON line naming every kernel with its numbers.
+  5. K1, K2 and K3 backward at the same width on seeded inputs and
+     cotangents, K1 with and without a cotangent for the attention map:
+     the same comparisons, times and bounds as phase 3, and bit-identical
+     outputs on two launches;
+  6. gradients of sum(logit^2) for every parameter, fused cell against eager
+     mixed cell, normalised by each gradient's largest entry: held at batch
+     128, T=8 from the seeded init; printed at T=64 with the chainE weights;
+  7. train chainE for 10 steps at batch 128, T=64, mixed bf16, fused,
+     Adam(3e-4), through make_train_step on one batch of the rendered clips:
+     finite stats, per step 2T launches of each forward kernel and T of each
+     backward kernel, the first loss against the eager path's from the same
+     weights, the last loss below the first, the unused parameter unchanged;
+     then, over the three batches in turn, p50 step latency, clips/s and peak
+     memory of the fused and the eager (recomputing) path, and of one
+     batch-180 step;
+  8. one JSON line naming every kernel with its numbers.
 The last line is {"ok": true, "device": {...}}. It needs a CUDA card and
 the repository beside it; without either it exits non-zero and prints no
 result.
@@ -48,7 +65,12 @@ CHECKPOINT = os.path.join(ROOT, "results_conv", "64_1_14", "chainE", "saved_mode
 BATCH, TIMESTEPS, SIDE, C = 128, 64, 32, 32
 ROWS = BATCH * SIDE * SIDE
 REQUESTS = 3
-TIMED_REQUESTS = 10  # per path, interleaved, after the counted run
+TIMED_REQUESTS = 6  # per path, interleaved, after the counted run
+TRAIN_STEPS = 10  # counted steps of the fused path
+TIMED_STEPS = 5  # per path, interleaved, after the counted steps
+GRAD_TIMESTEPS = 8  # depth of the held fused-vs-eager gradient comparison
+REFERENCE_BATCH = 180  # train_InT.sh's batch, run as one step
+LEARNING_RATE = 3e-4
 DEVICE = "cuda"
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit).
@@ -69,6 +91,28 @@ BF16_ULPS = 1
 # is printed but the mean and the 99th percentile are held.
 MEAN_SCORE_ATOL = 0.01
 P99_SCORE_ATOL = 0.1
+# Backward kernels vs their plain versions (cotangents are O(1)). Each
+# transposed product takes its cotangent rounded to bf16, so where kernel and
+# plain version differ by f32 ulps before that rounding, one operand moves by
+# a bf16 ulp (2^-8 relative) and the row output by that times a gate weight:
+# every element is held to 2^-8 of the output's largest entry, and all but
+# one in a thousand to the f32 (or one-bf16-ulp) tolerance above.
+FLIP_RTOL = 2.0 ** -8
+FLIP_SHARE = 1e-3
+# Reductions over the 131,072 rows (weight gradients, per-channel sums): f32
+# sums taken in another order, relative to the largest entry; the bf16 weight
+# gradients also round once more.
+REDUCTION_RTOL = 1e-3
+# Fused vs eager gradients, each normalised by its largest entry. The two
+# paths round their bf16 cotangents at different points; a bf16 ulp is 2^-8 =
+# 3.9e-3 of the value. At tests/test_int_fused.py's size (4 clips of 16x16,
+# T=5) the gap stays under that file's 6e-3; at batch 128 of 32x32, T=8 it
+# measures 8.6e-3, while the eager mixed cell itself sits 5.4e-3 from the f32
+# path (both printed below): held to 2e-2.
+GRAD_ATOL = 2e-2
+# First training loss, fused vs eager from the same weights: a mean over 128
+# clips of BCE terms whose scores differ by 0.002 on average (phase 4).
+LOSS_ATOL = 0.01
 # chainE's held-out accuracy is 69.08% at dist 14 (ROADMAP.md); chance is
 # 50%, and over 384 clips one standard deviation is 2.4 points.
 MIN_ACCURACY = 0.6
@@ -223,9 +267,7 @@ def _gap(a, b) -> str:
             f"max {d.max().item():.4g}")
 
 
-def serve_phase(serve, F, kernel_rows: list[dict]) -> None:
-    from pathtracker_torch.data.pathtracker import render_batch
-
+def serve_phase(serve, F, kernel_rows: list[dict], rendered) -> None:
     dev = torch.device(DEVICE)
     t0 = time.perf_counter()
     models = {
@@ -237,8 +279,6 @@ def serve_phase(serve, F, kernel_rows: list[dict]) -> None:
     if not models["fused"].use_fused or models["eager"].use_fused:
         fail("the bf16 InT did not dispatch to the fused cell (or fused=False did)")
     infer = {k: serve.make_inference_fn(m, "InT") for k, m in models.items()}
-    rendered = [render_batch(seed, BATCH, TIMESTEPS, n_distractors=DISTRACTORS,
-                             dot_size=DOT_SIZE) for seed in range(REQUESTS)]
     batches = [torch.from_numpy(clips).to(dev) for clips, _ in rendered]
     labels = torch.from_numpy(np.concatenate([y for _, y in rendered])).to(dev)
     for path in infer:  # warm-up: cuDNN plans, kernel load
@@ -251,22 +291,24 @@ def serve_phase(serve, F, kernel_rows: list[dict]) -> None:
     for k in F.KERNELS:
         k.launches = 0
     scores = {"fused": []}
+    expected = [TIMESTEPS] * len(F.FORWARD_KERNELS) + [0] * len(F.BACKWARD_KERNELS)
     for i, batch in enumerate(batches):
         before = [k.launches for k in F.KERNELS]
         out = infer["fused"](batch)
         torch.cuda.synchronize()
         rose = [k.launches - b for k, b in zip(F.KERNELS, before)]
-        if rose != [TIMESTEPS] * len(F.KERNELS):
-            fail(f"request {i}: kernel launches rose by {rose}, expected {TIMESTEPS} each")
+        if rose != expected:
+            fail(f"request {i}: kernel launches rose by {rose}, expected {expected}")
         if out.shape != (BATCH,) or out.dtype != torch.float32:
             fail(f"request {i}: scores {out.dtype} {tuple(out.shape)}")
         if not (torch.isfinite(out).all() and (out >= 0).all() and (out <= 1).all()):
             fail(f"request {i}: scores not finite in [0, 1]")
         scores["fused"].append(out)
     for row, k in zip(kernel_rows, F.KERNELS):
-        row["launches"] = k.launches
+        row["launches_serve"] = k.launches
     print(f"serve: {REQUESTS} requests through the fused cell, kernel launches "
-          f"{[k.launches for k in F.KERNELS]} (K1, K2, K3)", flush=True)
+          f"{[k.launches for k in F.KERNELS]} (K1, K2, K3 forward; backward)",
+          flush=True)
 
     for path in ("eager", "f32"):
         scores[path] = [infer[path](batch) for batch in batches]
@@ -306,6 +348,280 @@ def serve_phase(serve, F, kernel_rows: list[dict]) -> None:
           "over the timed requests", flush=True)
 
 
+def _bf16_ulp(a, b):
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(1e-30)
+    return torch.pow(2.0, torch.floor(torch.log2(mag)) - 7)
+
+
+def backward_errors(name: str, rows: int, got, want) -> tuple[float, float]:
+    """(max abs error over the row outputs, max error of the reductions
+    relative to their largest entry); fails past the stated tolerances."""
+    row_err = red_err = 0.0
+    if len(got) != len(want):
+        fail(f"{name}: {len(got)} outputs vs plain {len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            fail(f"{name}[{i}]: {a.dtype} {tuple(a.shape)} vs plain "
+                 f"{b.dtype} {tuple(b.shape)}")
+        if not torch.isfinite(a).all():
+            fail(f"{name}[{i}]: not finite")
+        a32, b32 = a.float(), b.float()
+        diff = (a32 - b32).abs()
+        scale = max(b32.abs().max().item(), 1.0)
+        if a.shape[0] != rows:  # a reduction over the rows
+            tol = REDUCTION_RTOL + (2.0 ** -7 if a.dtype == torch.bfloat16 else 0.0)
+            if diff.max().item() > tol * scale:
+                fail(f"{name}[{i}]: reduction off by {diff.max().item():.3g} "
+                     f"> {tol:.3g} x {scale:.3g}")
+            red_err = max(red_err, diff.max().item() / scale)
+            continue
+        tight = (BF16_ULPS * _bf16_ulp(a32, b32) if a.dtype == torch.bfloat16
+                 else ATOL_F32 * scale)
+        loose = torch.maximum(torch.as_tensor(FLIP_RTOL * scale, device=a.device),
+                              torch.as_tensor(tight, device=a.device))
+        if (diff > loose).any():
+            fail(f"{name}[{i}]: row output off by {diff.max().item():.3g} "
+                 f"> {FLIP_RTOL:.3g} x {scale:.3g}")
+        share = (diff > tight).float().mean().item()
+        if share > FLIP_SHARE:
+            fail(f"{name}[{i}]: {share:.3g} of the elements past the tight "
+                 f"tolerance (allowed {FLIP_SHARE})")
+        row_err = max(row_err, diff.max().item())
+    return row_err, red_err
+
+
+def backward_kernel_phase(F) -> list[dict]:
+    dev = torch.device(DEVICE)
+    d = kernel_inputs(torch.Generator(device=dev).manual_seed(0), dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    dgated = torch.randn((ROWS, C), generator=gen, device=dev).to(torch.bfloat16)
+    datt = torch.randn((ROWS, C), generator=gen, device=dev)
+    dnew = torch.randn((ROWS, C), generator=gen, device=dev)
+    k1 = ("exc", "att_x", "a_u", "a_u_b")
+    k2 = ("conv_i", "mean0", "rstd0", "scale0", "bias0", "inp", "gi_x", "inh",
+          "i_u", "i_u_b", "alpha", "mu")
+    k3 = ("conv_e", "mean1", "rstd1", "scale1", "bias1", "new_inh", "inh", "gated",
+          "exc", "e_w", "e_w_b", "e_u", "e_u_b", "kappa", "gamma")
+    # (name, wrapper, plain, arguments, TPU kernel, products (recomputed,
+    #  transposed and weight-gradient), f32 elementwise operations per
+    #  element counted from the code, whether it is the training path's case)
+    specs = [
+        ("k1_attention_bwd+datt", F.k1_attention_bwd, F.k1_attention_bwd_plain,
+         [d[k] for k in k1] + [dgated, datt], "pathtracker_tpu/ops/int_fused.py:206",
+         3, 14, False),
+        ("k1_attention_bwd", F.k1_attention_bwd, F.k1_attention_bwd_plain,
+         [d[k] for k in k1] + [dgated], "pathtracker_tpu/ops/int_fused.py:206",
+         3, 13, True),
+        ("k2_inhibition_bwd", F.k2_inhibition_bwd, F.k2_inhibition_bwd_plain,
+         [d[k] for k in k2] + [dnew], "pathtracker_tpu/ops/int_fused.py:332",
+         3, 70, True),
+        ("k3_excitation_bwd", F.k3_excitation_bwd, F.k3_excitation_bwd_plain,
+         [d[k] for k in k3] + [dnew], "pathtracker_tpu/ops/int_fused.py:467",
+         6, 55, True),
+    ]
+    rows = []
+    for name, wrapper, plain, args, replaces, n_products, f32_ops, on_path in specs:
+        got = wrapper(*args)
+        again = wrapper(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{name}: two launches on the same inputs differ")
+        want = plain(*args)
+        row_err, red_err = backward_errors(name, ROWS, got, want)
+        ms = device_ms(lambda: wrapper(*args))
+        plain_ms = device_ms(lambda: plain(*args), calls=5, replays=4)
+        per_call_ms = call_ms(lambda: wrapper(*args))
+        # Each input and cotangent read once, each output written once (the
+        # [32, 32] and [32] results, not the per-block workspaces).
+        nbytes = sum(t.numel() * t.element_size() for t in (*args, *got))
+        bytes_ms = nbytes / MEMORY_BYTES_PER_S * 1e3
+        ops_ms = (n_products * 2 * ROWS * C * C / BF16_TENSOR_FLOP_PER_S
+                  + f32_ops * ROWS * C / F32_FLOP_PER_S) * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        print(f"kernel {name}: bit-identical on two launches; row outputs "
+              f"max_abs_err {row_err:.3g} (held: {FLIP_RTOL:.3g} of the largest "
+              f"entry, and all but {FLIP_SHARE} within f32 {ATOL_F32} / bf16 "
+              f"{BF16_ULPS} ulp), reductions rel err {red_err:.3g} (held "
+              f"{REDUCTION_RTOL}) | device {ms * 1e3:.2f} us/launch, plain "
+              f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+              f"({nbytes / 1e6:.1f} MB; {bound_ms / ms:.0%} of bound) | "
+              f"wrapper {per_call_ms * 1e3:.2f} us/call from Python", flush=True)
+        if on_path:
+            rows.append(dict(name=name, route="cuda",
+                             source="pathtracker_torch/csrc/int_cell_bwd.cu",
+                             replaces=replaces, launches=0, max_abs_err=row_err,
+                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                             library_ms=None, reduction_rel_err=red_err))
+    return rows
+
+
+def _loss_gradients(model, imgs) -> dict:
+    """Gradients of sum(logit^2) (tests/test_int_fused.py's loss) by name."""
+    logit, _ = model(imgs)
+    params = dict(model.named_parameters())
+    grads = torch.autograd.grad(logit.square().sum(), list(params.values()),
+                                allow_unused=True)
+    return dict(zip(params, grads))
+
+
+def _gradient_gap(got: dict, want: dict) -> tuple[float, str]:
+    """Largest |got - want| gradient entry, each gradient normalised by
+    ``want``'s largest entry; and the parameter it is in."""
+    worst, where = 0.0, ""
+    for key, ref in want.items():
+        if (ref is None) != (got[key] is None):
+            fail(f"gradient of {key}: one path has none")
+        if ref is None:
+            continue
+        if not torch.isfinite(got[key]).all():
+            fail(f"gradient of {key} is not finite")
+        gap = ((got[key] - ref).abs().max() / ref.abs().max().clamp_min(1e-3)).item()
+        if gap > worst:
+            worst, where = gap, key
+    return worst, where
+
+
+def gradient_phase(serve, F, rendered) -> None:
+    from pathtracker_torch.data.prepare import prepare_batch
+
+    dev = torch.device(DEVICE)
+    clips = torch.from_numpy(rendered[0][0]).to(dev)
+    imgs, _ = prepare_batch(clips, torch.zeros(BATCH, dtype=torch.uint8, device=dev))
+    for label, length, ckpt in (("seeded init", GRAD_TIMESTEPS, None),
+                                ("chainE weights", TIMESTEPS, CHECKPOINT)):
+        x = imgs[:, :, :length]
+        before = [k.launches for k in F.KERNELS]
+        grads = {
+            "fused": _loss_gradients(serve.build(
+                ckpt=ckpt, length=length, bf16=True, device=dev), x),
+            "eager": _loss_gradients(serve.build(
+                ckpt=ckpt, length=length, bf16=True, fused=False, device=dev), x),
+            "f32": _loss_gradients(serve.build(ckpt=ckpt, length=length, device=dev), x),
+        }
+        rose = [k.launches - b for k, b in zip(F.KERNELS, before)]
+        if rose != [2 * length] * 3 + [length] * 3:
+            fail(f"gradients, {label}: kernel launches rose by {rose}")
+        gap, where = _gradient_gap(grads["fused"], grads["eager"])
+        held = ckpt is None
+        print(f"gradients, {label}, batch {BATCH}, T={length}: largest normalised "
+              f"gap fused vs eager {gap:.4g} (in {where}) "
+              f"{'(held: <= ' + str(GRAD_ATOL) + ')' if held else '(printed, not held)'}; "
+              f"fused vs f32 {_gradient_gap(grads['fused'], grads['f32'])[0]:.4g}, "
+              f"eager vs f32 {_gradient_gap(grads['eager'], grads['f32'])[0]:.4g}",
+              flush=True)
+        if held and gap > GRAD_ATOL:
+            fail(f"fused and eager gradients differ by {gap:.4g} > {GRAD_ATOL}")
+
+
+def train_phase(serve, F, kernel_rows: list[dict], rendered) -> None:
+    from pathtracker_torch.data.pathtracker import render_batch
+    from pathtracker_torch.train.steps import (TRAIN_KEYS, make_optimizer,
+                                               make_train_step)
+
+    dev = torch.device(DEVICE)
+    batches = [(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+               for x, y in rendered]
+    steps, models = {}, {}
+    for path, kw in (("fused", {}), ("eager", {"fused": False})):
+        model = serve.build(ckpt=CHECKPOINT, length=TIMESTEPS, bf16=True,
+                            device=dev, **kw).train()
+        # Warm cuDNN's backward plans and the kernels' load; weights untouched.
+        model(torch.zeros((BATCH, 3, TIMESTEPS, SIDE, SIDE), device=dev))[0].sum().backward()
+        model.zero_grad(set_to_none=True)
+        models[path] = model
+        steps[path] = make_train_step(model, "InT", make_optimizer(LEARNING_RATE))
+    if not models["fused"].use_fused or models["eager"].use_fused:
+        fail("the bf16 InT did not dispatch to the fused cell (or fused=False did)")
+    unused = models["fused"].unit1.w.detach().clone()
+    torch.cuda.synchronize()
+
+    # The main path: counts from 0; each step 2T forward launches (the step
+    # and its recompute in backward) and T backward launches per kernel.
+    for k in F.KERNELS:
+        k.launches = 0
+    expected = [2 * TIMESTEPS] * 3 + [TIMESTEPS] * 3
+    losses = []
+    for i in range(TRAIN_STEPS):
+        before = [k.launches for k in F.KERNELS]
+        stats = steps["fused"](*batches[0])
+        torch.cuda.synchronize()
+        rose = [k.launches - b for k, b in zip(F.KERNELS, before)]
+        if rose != expected:
+            fail(f"train step {i}: kernel launches rose by {rose}, expected {expected}")
+        if set(stats) != set(TRAIN_KEYS) or not all(np.isfinite(v) for v in stats.values()):
+            fail(f"train step {i}: stats {stats}")
+        losses.append(float(stats["loss"]))
+    for row, k in zip(kernel_rows, F.KERNELS):
+        row["launches_train"] = k.launches
+        row["launches"] = row.get("launches_serve", 0) + k.launches
+    print(f"train: {TRAIN_STEPS} steps through the fused cell, kernel launches "
+          f"{[k.launches for k in F.KERNELS]} (K1, K2, K3 forward; backward); "
+          f"losses {' '.join(f'{v:.4f}' for v in losses)}", flush=True)
+    if not losses[-1] < losses[0]:  # every counted step saw the same batch
+        fail(f"loss on the repeated batch did not fall: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if not torch.equal(models["fused"].unit1.w, unused):
+        fail("unit1.w, which the forward never reads, changed")
+
+    eager_first = float(steps["eager"](*batches[0])["loss"])
+    print(f"train: first loss fused {losses[0]:.5f}, eager {eager_first:.5f} "
+          f"(held: within {LOSS_ATOL})", flush=True)
+    if abs(eager_first - losses[0]) > LOSS_ATOL:
+        fail("fused and eager first losses differ past the tolerance")
+
+    times = {"fused": [], "eager": []}
+    peaks = {}
+    for i in range(TIMED_STEPS):
+        for path in (("fused", "eager") if i % 2 == 0 else ("eager", "fused")):
+            batch = batches[i % len(batches)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            steps[path](*batch)
+            torch.cuda.synchronize()
+            times[path].append(time.perf_counter() - t)
+            peaks[path] = max(peaks.get(path, 0), torch.cuda.max_memory_allocated())
+    for path, ts in times.items():
+        print(f"train {path}: p50 step latency {statistics.median(ts) * 1e3:.2f} ms, "
+              f"{BATCH * len(ts) / sum(ts):.1f} clips/s over {len(ts)} steps of "
+              f"{BATCH} clips (T={TIMESTEPS}); peak device memory "
+              f"{peaks[path] / 2**30:.2f} GiB", flush=True)
+
+    # The reference batch as one step (printed, nothing held to it).
+    clips, labels = render_batch(REQUESTS, REFERENCE_BATCH, TIMESTEPS,
+                                 n_distractors=DISTRACTORS, dot_size=DOT_SIZE)
+    big = (torch.from_numpy(clips).to(dev), torch.from_numpy(labels).to(dev))
+    steps["fused"](*big)  # warm at this shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    stats = steps["fused"](*big)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    print(f"train fused, one batch-{REFERENCE_BATCH} step: {dt * 1e3:.2f} ms "
+          f"({REFERENCE_BATCH / dt:.1f} clips/s), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, loss "
+          f"{float(stats['loss']):.4f}", flush=True)
+
+
+def resource_lines(log: str) -> list[str]:
+    """'kernel: N registers, S bytes smem, spills' from ptxas -v's output."""
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            name = next((k for k in ("k1_bwd_kernel", "k2_bwd_kernel", "k3_bwd_kernel",
+                                     "k1_kernel", "k2_kernel", "k3_kernel")
+                         if k in mangled), mangled)
+        elif "spill" in line and name:
+            spill = line.strip()
+        elif "Used" in line and name:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return out
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -315,6 +631,7 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository",
               file=sys.stderr)
         return 2
+    from pathtracker_torch.data.pathtracker import render_batch
     from pathtracker_torch.eval import serve
     from pathtracker_torch.ops import _native
     from pathtracker_torch.ops import int_fused as F
@@ -325,9 +642,19 @@ def main() -> int:
     built = _native.build()
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(f'csrc/{n}.cu' for n in built) or 'up to date'})", flush=True)
+    for name in _native.SIGNATURES:
+        for line in resource_lines(_native.build_log(name)):
+            print(f"build: csrc/{name}.cu {line}", flush=True)
 
+    rendered = [render_batch(seed, BATCH, TIMESTEPS, n_distractors=DISTRACTORS,
+                             dot_size=DOT_SIZE) for seed in range(REQUESTS)]
     kernel_rows = kernel_phase(F)
-    serve_phase(serve, F, kernel_rows)
+    serve_phase(serve, F, kernel_rows, rendered)
+    kernel_rows += backward_kernel_phase(F)
+    gradient_phase(serve, F, rendered)
+    train_phase(serve, F, kernel_rows, rendered)
+    if any(row["launches"] <= 0 for row in kernel_rows):
+        fail(f"a kernel was never launched on the main paths: {kernel_rows}")
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

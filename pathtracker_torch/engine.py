@@ -35,9 +35,12 @@ def model_selector(args, timesteps: int, device=None, **model_kwargs):
     )
 
 
-def model_step(model, imgs, model_name: str, test: bool = False):
+def model_step(model, imgs, model_name: str, test: bool = False,
+               generator=None):
     """Forward dispatch (reference utils/engine.py:42-72). Returns
-    (output, jv_penalty) or, with test=True, (output, states, gates)."""
+    (output, jv_penalty) or, with test=True, (output, states, gates).
+    ``generator`` is the train step's, for models with stochastic layers;
+    the recurrent family has none and ignores it."""
     if family(model_name) != "recurrent":
         raise NotImplementedError(
             f"{model_name!r}: the {family(model_name)} forward family comes "

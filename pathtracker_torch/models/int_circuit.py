@@ -24,6 +24,16 @@ are stored bf16 (int_circuit.py:302-319), while the carry, the BN
 statistics and the readout stay f32. A pure-bf16 carry never leaves the
 chance plateau (int_circuit.py:237-245), so there is none.
 
+Training: when a gradient is asked for, each step runs through
+``_RecomputedStep``, which saves only the step's inputs (the f32 carry, the
+three hoisted slices, the cell parameters) and re-runs the step in backward,
+so a step's residuals live only while its own backward runs
+(int_circuit.py:102-125 for the fused cell, ``remat_policy='full'``
+:383-384 for the eager one). The fused cell always recomputes; the eager
+cell does unless ``remat=False``. The kernels' backward halves are
+hand-written too (ops/int_fused.py); the convs' backward is cuDNN's and the
+BN statistics' is autograd's.
+
 Two cells, chosen from the config alone before anything launches:
   * the eager cell (``_int_cell_step``): every config, f32 or mixed bf16 —
     the f32 parity path, the lesion/no_inh/no-attention/tanh variants, and
@@ -41,6 +51,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.autograd.function import once_differentiable
 
 from pathtracker_torch import resolve_device
 from pathtracker_torch.models import common
@@ -100,23 +111,64 @@ def _conv_rows(z_rows, weight, shape):
 
 def _int_cell_step_fused(cp, xt, carry, shape):
     """The mixed-bf16 default cell on [R, C] rows (int_circuit.py:59-99):
-    K1, conv, BN0 stats, K2, conv, BN1 stats, K3."""
+    K1, conv, BN0 stats, K2, conv, BN1 stats, K3. The gate matrices are cast
+    to bf16 here: no work when ``cp`` holds them in bf16 already (no
+    gradient asked for), and one f32 gradient per step when it holds the f32
+    parameters."""
     c = shape[-1]
+    bf16 = torch.bfloat16
     inp, att_x, gi_x = (z.reshape(-1, c) for z in xt)
     inh, exc = carry
-    gated, att = F.k1_attention(exc, att_x, cp["a_u"], cp["a_u_b"])
+    gated, att = F.k1_attention(exc, att_x, cp["a_u"].to(bf16), cp["a_u_b"])
     conv_i = _conv_rows(gated, cp["w_inh"], shape)
     mean0, rstd0 = F.stats(conv_i)
     new_inh = F.k2_inhibition(
         conv_i, mean0, rstd0, cp["bn0_scale"], cp["bn0_bias"], inp, gi_x, inh,
-        cp["i_u"], cp["i_u_b"], cp["alpha"], cp["mu"])
+        cp["i_u"].to(bf16), cp["i_u_b"], cp["alpha"], cp["mu"])
     conv_e = _conv_rows(new_inh, cp["w_exc"], shape)
     mean1, rstd1 = F.stats(conv_e)
     new_exc = F.k3_excitation(
         conv_e, mean1, rstd1, cp["bn1_scale"], cp["bn1_bias"], new_inh, inh,
-        gated, exc, cp["e_w"], cp["e_w_b"], cp["e_u"], cp["e_u_b"],
-        cp["kappa"], cp["gamma"])
+        gated, exc, cp["e_w"].to(bf16), cp["e_w_b"], cp["e_u"].to(bf16),
+        cp["e_u_b"], cp["kappa"], cp["gamma"])
     return (new_inh, new_exc), att
+
+
+class _RecomputedStep(torch.autograd.Function):
+    """``fn(*args) -> tuple of tensors`` that saves only ``args`` and, in
+    backward, runs ``fn`` again with grad enabled and pulls the cotangents
+    through it (int_circuit.py:109-125). Non-tensor arguments pass through
+    and get no gradient."""
+
+    @staticmethod
+    def forward(ctx, fn, *args):
+        ctx.fn = fn
+        ctx.is_tensor = [isinstance(a, torch.Tensor) for a in args]
+        ctx.consts = [a for a in args if not isinstance(a, torch.Tensor)]
+        ctx.save_for_backward(*(a for a in args if isinstance(a, torch.Tensor)))
+        ctx.set_materialize_grads(False)
+        return fn(*args)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *cotangents):
+        saved, consts = iter(ctx.saved_tensors), iter(ctx.consts)
+        args = [next(saved).detach().requires_grad_(need) if is_tensor
+                else next(consts)
+                for is_tensor, need in zip(ctx.is_tensor, ctx.needs_input_grad[1:])]
+        wanted = [is_tensor and a.requires_grad
+                  for a, is_tensor in zip(args, ctx.is_tensor)]
+        leaves = [a for a, want in zip(args, wanted) if want]
+        with torch.enable_grad():
+            outs = ctx.fn(*args)
+        pairs = [(o, d) for o, d in zip(outs, cotangents)
+                 if d is not None and o.requires_grad]
+        if not (pairs and leaves):
+            return (None,) * (1 + len(args))
+        grads = iter(torch.autograd.grad(
+            [o for o, _ in pairs], leaves, [d for _, d in pairs],
+            allow_unused=True))
+        return (None, *(next(grads) if want else None for want in wanted))
 
 
 class RCell(nn.Module):
@@ -184,6 +236,9 @@ class InT(nn.Module):
     ``dtype='float32'`` runs everything in f32 (reference parity);
     ``'bfloat16'`` is the mixed path: bf16 operands into the convs and 1x1
     matmuls with f32 accumulation, f32 carry, BN statistics and readout.
+    ``remat`` (the eager cell only; the fused cell always does): recompute
+    each step in backward and keep only the carry, as the JAX package's
+    ``remat_policy='full'``; gradients are the same either way.
     Parameters are drawn from ``torch.Generator().manual_seed(seed)`` and
     placed on ``device`` (``None`` means cuda).
     """
@@ -193,8 +248,8 @@ class InT(nn.Module):
                  no_inh: bool = False, lesion_alpha: bool = False,
                  lesion_mu: bool = False, lesion_gamma: bool = False,
                  lesion_kappa: bool = False, nl: str = "softplus",
-                 fused: bool = True, dtype: str = "float32", seed: int = 0,
-                 device=None):
+                 fused: bool = True, remat: bool = True,
+                 dtype: str = "float32", seed: int = 0, device=None):
         super().__init__()
         if nl not in _NL:
             raise ValueError(f"nl must be one of {sorted(_NL)}, got {nl!r}")
@@ -206,6 +261,7 @@ class InT(nn.Module):
         flags = (lesion_alpha, lesion_mu, lesion_gamma, lesion_kappa)
         self.lesions = frozenset(n for n, on in zip(_LESIONS, flags) if on)
         self.mxu = torch.bfloat16 if dtype == "bfloat16" else None
+        self.remat = remat
         # The fused kernels cover exactly the JAX package's fused configs
         # (int_circuit.py:340-345); every other config runs the eager cell.
         self.use_fused = (fused and self.mxu is not None and use_attention
@@ -221,16 +277,19 @@ class InT(nn.Module):
         common.make_readout(self, c, gen)
         self.to(resolve_device(device))
 
-    def _cell_params(self):
+    def _cell_params(self, cast: bool):
         """The cell's parameters in the step functions' layouts: gate
-        kernels [Cin, Cout] and k x k kernels cast once per forward to the
-        matmul dtype (bf16 on the mixed path), per-channel vectors [C], and
-        0.0 for lesioned scalars."""
+        kernels [Cin, Cout] and k x k kernels, per-channel vectors [C], and
+        0.0 for lesioned scalars. With ``cast`` the kernels are cast once
+        per forward to the matmul dtype (bf16 on the mixed path). Without
+        it they stay f32 and the step casts them: each step then hands back
+        an f32 gradient and the sum over the T steps is taken in f32, as
+        the JAX package's in-step casts have it."""
         cell = self.unit1
-        wdt = self.mxu or torch.float32
+        wdt = (self.mxu or torch.float32) if cast else torch.float32
 
         def kern(name):
-            return getattr(cell, name).weight[:, :, 0, 0].t().to(wdt).contiguous()
+            return getattr(cell, name).weight[:, :, 0, 0].t().contiguous().to(wdt)
 
         def bias(name):
             return getattr(cell, name).bias
@@ -274,21 +333,41 @@ class InT(nn.Module):
         inp = store(xbn)
         del xbn
 
-        cp = self._cell_params()
+        grad = torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
+        cp = self._cell_params(cast=not grad)
         shape = (b, h, w, c)
         zeros = torch.zeros(shape, dtype=torch.float32, device=x.device)
         if self.use_fused:
             zeros = zeros.view(-1, c)
-        carry = (zeros, zeros)
-        states, gates = [], []
-        for i in range(t):
-            xt = (inp[i], att_in[i] if att_in is not None else None, gi_in[i])
-            if self.use_fused:
-                carry, att = _int_cell_step_fused(cp, xt, carry, shape)
-            else:
-                carry, att = _int_cell_step(
+
+            def step(cp, xt, carry):
+                return _int_cell_step_fused(cp, xt, carry, shape)
+        else:
+            def step(cp, xt, carry):
+                return _int_cell_step(
                     cp, xt, carry, use_attention=self.use_attention,
                     no_inh=self.no_inh, act=act, mxu=mxu)
+        if grad and (self.use_fused or self.remat):
+            names, direct = tuple(cp), step
+
+            def flat(*args):
+                (inh, exc), att = direct(dict(zip(names, args)),
+                                         args[len(names):-2], args[-2:])
+                return inh, exc, att
+
+            def step(cp, xt, carry):
+                inh, exc, att = _RecomputedStep.apply(flat, *cp.values(), *xt, *carry)
+                return (inh, exc), att
+        carry = (zeros, zeros)
+        states, gates = [], []
+        # unbind, not inp[i]: one stacked gradient per projection in backward
+        # instead of T full-size zero-filled ones.
+        slices = zip(inp.unbind(0),
+                     att_in.unbind(0) if att_in is not None else [None] * t,
+                     gi_in.unbind(0))
+        for xt in slices:
+            carry, att = step(cp, xt, carry)
             if testmode:
                 states.append(common.readout_state_map(self, carry[1].view(shape)))
                 gates.append(att.view(shape))

@@ -3,13 +3,17 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 alone (no PyTorch headers, which cost minutes a build) into
 ``build/lib<name>_<hash>.so``; the hash covers the source and the flags, so
-an edited source builds anew. The library is loaded with ``ctypes``.
-Nothing here runs at import: the first launch builds and loads, and
-``build()`` does it ahead of time, one ``nvcc`` per source, all at once.
+an edited source builds anew. ``ptxas -v``'s account of each kernel
+(registers, shared memory, spills) is kept beside it as ``.log``. The
+library is loaded with ``ctypes``. Nothing here runs at import: the first
+launch builds and loads, and ``build()`` does it ahead of time, one ``nvcc``
+per source, all at once.
 
-Every exported function takes its tensors' device pointers, the row count
-and the CUDA stream, launches on that stream without synchronising or
-allocating, and returns ``cudaGetLastError()`` after the launch.
+Every exported kernel function takes its tensors' device pointers, the row
+count and the CUDA stream, launches on that stream without synchronising or
+allocating, and returns ``cudaGetLastError()`` after the launch. A backward
+kernel also exports ``<function>_blocks(rows)``: the grid it launches, which
+sizes the per-block partial-sum workspaces its wrapper allocates.
 """
 
 from __future__ import annotations
@@ -24,12 +28,14 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # source name -> {exported function: number of tensor pointers it takes}
 SIGNATURES = {
     "int_cell": {"k1_attention_fwd": 6, "k2_inhibition_fwd": 13,
                  "k3_excitation_fwd": 16},
+    "int_cell_bwd": {"k1_attention_bwd": 10, "k2_inhibition_bwd": 19,
+                     "k3_excitation_bwd": 24},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -53,6 +59,12 @@ def library_path(name: str) -> Path:
     return BUILD / f"lib{name}_{digest}.so"
 
 
+def build_log(name: str) -> str:
+    """nvcc's output for the built ``csrc/<name>.cu`` (ptxas -v: registers,
+    shared memory and spill bytes per kernel)."""
+    return library_path(name).with_suffix(".log").read_text()
+
+
 def build(names=None) -> list[str]:
     """Compile every named source (default: all) that has no library yet;
     returns the names compiled. Raises with nvcc's output if one fails."""
@@ -73,6 +85,7 @@ def build(names=None) -> list[str]:
         if proc.returncode != 0:
             failed.append(f"{name}.cu:\n{out}")
         else:
+            library_path(name).with_suffix(".log").write_text(out)
             os.replace(tmp, library_path(name))
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
@@ -89,19 +102,33 @@ def _library(name: str) -> ctypes.CDLL:
             f.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_longlong,
                                                        ctypes.c_void_p]
             f.restype = ctypes.c_int
+            if fn.endswith("_bwd"):
+                q = getattr(lib, fn + "_blocks")
+                q.argtypes, q.restype = [ctypes.c_longlong], ctypes.c_int
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
     return lib
 
 
+def blocks(name: str, fn: str, rows: int) -> int:
+    """The grid ``fn`` launches for ``rows`` rows: the leading size of its
+    per-block partial workspaces."""
+    n = getattr(_library(name), fn + "_blocks")(rows)
+    if n <= 0:
+        raise RuntimeError(f"{fn}_blocks({rows}) returned {n}")
+    return n
+
+
 def launch(name: str, fn: str, tensors, rows: int, stream: int) -> None:
-    """Call ``fn`` of ``csrc/<name>.cu``; raise if the launch failed."""
+    """Call ``fn`` of ``csrc/<name>.cu``; raise if the launch failed. A
+    ``None`` among ``tensors`` is passed as a null pointer."""
     lib = _library(name)
     if len(tensors) != SIGNATURES[name][fn]:
         raise ValueError(f"{fn} takes {SIGNATURES[name][fn]} tensors, "
                          f"got {len(tensors)}")
-    err = getattr(lib, fn)(*[t.data_ptr() for t in tensors], rows, stream)
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    err = getattr(lib, fn)(*ptrs, rows, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA error {err} "
                            f"({lib.cuda_error_string(err).decode()})")

@@ -1,4 +1,4 @@
-"""The InT cell's three fused elementwise/gate phases, forward halves
+"""The InT cell's three fused elementwise/gate phases, forward and backward
 (pathtracker_tpu/ops/int_fused.py).
 
 The cell step (reference models/InT.py:145-179) splits into three phases
@@ -23,15 +23,22 @@ bf16-rounded operands with f32 accumulation; all elementwise math is f32;
 softplus is ``jax.nn.softplus``'s logaddexp form, not the eager cell's
 thresholded one.
 
-Each phase has a plain PyTorch version and a wrapper. The wrapper checks
-its inputs, then takes the plain version for CPU tensors and launches the
-hand-written CUDA kernel (csrc/int_cell.cu) for CUDA tensors, raising if
-the launch fails. ``<wrapper>.launches`` counts kernel launches only.
+Each phase has, forward and backward, a plain PyTorch version and a wrapper.
+A wrapper checks its inputs, then takes the plain version for CPU tensors
+and launches the hand-written CUDA kernel (csrc/int_cell.cu forward,
+csrc/int_cell_bwd.cu backward) for CUDA tensors, raising if the launch
+fails. ``<wrapper>.launches`` counts kernel launches only. The backward
+versions are hand-derived like the Pallas ones, not autograd of the forward:
+they recompute the phase from its inputs and round where the Pallas bodies
+round. ``k1_attention``, ``k2_inhibition`` and ``k3_excitation`` are
+differentiable: given an input that requires grad they go through a
+``torch.autograd.Function`` whose backward is the backward wrapper.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from pathtracker_torch.ops import _native
 
@@ -94,6 +101,86 @@ def k3_excitation_plain(conv_e, mean1, rstd1, scale1, bias1, new_inh, inh,
     return (1.0 - g) * exc + g * exc_hat
 
 
+def _dot_t(d, w):
+    """[R, C] @ [C, C]^T: bf16-rounded operands, f32 accumulation."""
+    return d.to(_BF16).float() @ w.float().t()
+
+
+def _wgrad(x, d, dtype):
+    """x^T @ d -> [C, C]: both operands rounded to bf16, f32 accumulation,
+    the sum rounded once to the weight operand's ``dtype``. (The Pallas
+    kernels round each of four block-diagonal copies and then sum them, so
+    the two can differ by a bf16 ulp.)"""
+    return (x.to(_BF16).float().t() @ d.to(_BF16).float()).to(dtype)
+
+
+def k1_attention_bwd_plain(exc, att_x, a_u, a_u_b, dgated, datt=None):
+    """int_fused.py::_k1_bwd_kernel (:160-175). ``datt=None`` is a zero
+    cotangent for the attention map. -> (dexc f32, datt_x bf16, da_u
+    [C,C] in a_u's dtype, da_u_b f32 [C])."""
+    att = torch.sigmoid(att_x.float() + _dot(exc, a_u) + a_u_b)
+    dgated = dgated.float()
+    da = dgated * exc if datt is None else dgated * exc + datt
+    dpre = da * att * (1.0 - att)
+    dexc = dgated * att + _dot_t(dpre, a_u)
+    return (dexc, dpre.to(_BF16), _wgrad(exc, dpre, a_u.dtype), dpre.sum(dim=0))
+
+
+def k2_inhibition_bwd_plain(conv_i, mean0, rstd0, scale0, bias0, inp, gi_x, inh,
+                            i_u, i_u_b, alpha, mu, dnew):
+    """int_fused.py::_k2_bwd_kernel (:254-297). One gradient per forward
+    input, in the forward's order: conv_i, inp, gi_x bf16; inh f32; i_u in
+    its own dtype; the vectors f32 [C]."""
+    cm = conv_i.float() - mean0
+    xn = cm * rstd0
+    bn0 = xn * scale0 + bias0
+    lin = alpha * inh + mu
+    t1 = bn0 * lin
+    pre2 = inp.float() - _sp(t1)
+    inh_hat = _sp(pre2)
+    g = torch.sigmoid(gi_x.float() + _dot(inh, i_u) + i_u_b)
+
+    dgpre = dnew * (inh_hat - inh) * g * (1.0 - g)
+    dpre2 = dnew * g * torch.sigmoid(pre2)
+    dt1 = -dpre2 * torch.sigmoid(t1)
+    dbn0 = dt1 * lin
+    dlin = dt1 * bn0
+    dxn = dbn0 * scale0
+    dinh = dnew * (1.0 - g) + dlin * alpha + _dot_t(dgpre, i_u)
+    return ((dxn * rstd0).to(_BF16), (-dxn).sum(dim=0) * rstd0,
+            (dxn * cm).sum(dim=0), (dbn0 * xn).sum(dim=0), dbn0.sum(dim=0),
+            dpre2.to(_BF16), dgpre.to(_BF16), dinh,
+            _wgrad(inh, dgpre, i_u.dtype), dgpre.sum(dim=0),
+            (dlin * inh).sum(dim=0), dlin.sum(dim=0))
+
+
+def k3_excitation_bwd_plain(conv_e, mean1, rstd1, scale1, bias1, new_inh, inh,
+                            gated, exc, e_w, e_w_b, e_u, e_u_b, kappa, gamma,
+                            dnew):
+    """int_fused.py::_k3_bwd_kernel (:388-435). One gradient per forward
+    input, in the forward's order; both gate biases get the same sum."""
+    cm = conv_e.float() - mean1
+    xn = cm * rstd1
+    bn1 = xn * scale1 + bias1
+    lin = kappa * new_inh + gamma
+    t1 = bn1 * lin
+    exc_hat = _sp(t1)
+    g = torch.sigmoid(_dot(inh, e_w) + e_w_b + _dot(gated.float(), e_u) + e_u_b)
+
+    dgpre = dnew * (exc_hat - exc) * g * (1.0 - g)
+    dt1 = dnew * g * torch.sigmoid(t1)
+    dbn1 = dt1 * lin
+    dlin = dt1 * bn1
+    dxn = dbn1 * scale1
+    db = dgpre.sum(dim=0)
+    return ((dxn * rstd1).to(_BF16), (-dxn).sum(dim=0) * rstd1,
+            (dxn * cm).sum(dim=0), (dbn1 * xn).sum(dim=0), dbn1.sum(dim=0),
+            dlin * kappa, _dot_t(dgpre, e_w), _dot_t(dgpre, e_u).to(_BF16),
+            dnew * (1.0 - g), _wgrad(inh, dgpre, e_w.dtype), db,
+            _wgrad(gated, dgpre, e_u.dtype), db, (dlin * new_inh).sum(dim=0),
+            dlin.sum(dim=0))
+
+
 # -------------------------------- wrappers ----------------------------------
 
 # Each wrapper's arguments as (name, dtype, shape): 'rows' is [R, C], 'mat'
@@ -124,11 +211,7 @@ def _reject(name, t, dtype, shape, device):
                          f"{t.dtype} {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    raise NotImplementedError(
-        f"{name} requires grad: the fused cell has no backward yet; run the "
-        "forward under torch.no_grad()")
+    raise ValueError(f"{name}: on {t.device}, expected {device}")
 
 
 def _on_card(spec, args) -> bool:
@@ -141,11 +224,10 @@ def _on_card(spec, args) -> bool:
         raise ValueError(f"{spec[0][0]}: expected [rows > 0, {C}]")
     device = first.device
     shapes = {"rows": (rows, C), "mat": (C, C), "vec": (C,)}
-    grad = torch.is_grad_enabled()
     for (name, dtype, kind), t in zip(spec, args):
         if not (isinstance(t, torch.Tensor) and t.dtype == dtype
                 and t.shape == shapes[kind] and t.is_contiguous()
-                and t.device == device) or (grad and t.requires_grad):
+                and t.device == device):
             _reject(name, t, dtype, shapes[kind], device)
     if device.type == "cuda":
         if device.index != torch.cuda.current_device():
@@ -157,22 +239,179 @@ def _on_card(spec, args) -> bool:
     return False
 
 
-def _launch(fn, tensors):
+def _launch(lib, fn, tensors):
     stream = torch.cuda.current_stream().cuda_stream
-    _native.launch("int_cell", fn, tensors, tensors[0].shape[0], stream)
+    _native.launch(lib, fn, tensors, tensors[0].shape[0], stream)
+
+
+def _differentiable(args) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in args)
+
+
+# Forward launches, after the wrapper's checks.
+
+def _k1_launch(args):
+    gated = torch.empty_like(args[0], dtype=_BF16)
+    att = torch.empty_like(args[0])
+    _launch("int_cell", "k1_attention_fwd", args + (gated, att))
+    k1_attention.launches += 1
+    return gated, att
+
+
+def _k2_launch(args):
+    out = torch.empty_like(args[7])
+    _launch("int_cell", "k2_inhibition_fwd", args + (out,))
+    k2_inhibition.launches += 1
+    return out
+
+
+def _k3_launch(args):
+    out = torch.empty_like(args[8])
+    _launch("int_cell", "k3_excitation_fwd", args + (out,))
+    k3_excitation.launches += 1
+    return out
+
+
+def _partials(fn, ref, *leading):
+    """f32 workspaces [blocks, n, C] for ``fn``'s per-block partial sums."""
+    blocks = _native.blocks("int_cell_bwd", fn, ref.shape[0])
+    return [torch.empty((blocks, n, C), dtype=_F32, device=ref.device)
+            for n in leading]
+
+
+# ---------------------------- backward wrappers -----------------------------
+
+def k1_attention_bwd(exc, att_x, a_u, a_u_b, dgated, datt=None):
+    """The K1 inputs, dgated [R,C] bf16 and datt [R,C] f32 or None (no
+    cotangent for the attention map: its read is skipped) -> (dexc [R,C]
+    f32, datt_x [R,C] bf16, da_u [C,C] bf16, da_u_b [C] f32)."""
+    args = (exc, att_x, a_u, a_u_b, dgated)
+    spec = _K1_SPEC + (("dgated", _BF16, "rows"),)
+    if datt is not None:
+        args, spec = args + (datt,), spec + (("datt", _F32, "rows"),)
+    if not _on_card(spec, args):
+        return k1_attention_bwd_plain(exc, att_x, a_u, a_u_b, dgated, datt)
+    dexc = torch.empty_like(exc)
+    dattx = torch.empty_like(att_x)
+    ws_w, ws_b = _partials("k1_attention_bwd", exc, C, 1)
+    _launch("int_cell_bwd", "k1_attention_bwd",
+            (exc, att_x, a_u, a_u_b, dgated, datt, dexc, dattx, ws_w, ws_b))
+    k1_attention_bwd.launches += 1
+    return dexc, dattx, ws_w.sum(dim=0).to(_BF16), ws_b.sum(dim=0)[0]
+
+
+def k2_inhibition_bwd(conv_i, mean0, rstd0, scale0, bias0, inp, gi_x, inh,
+                      i_u, i_u_b, alpha, mu, dnew):
+    """The K2 inputs and dnew [R,C] f32 -> one gradient per input, in the
+    inputs' order and dtypes (the vectors' as f32 [C])."""
+    args = (conv_i, mean0, rstd0, scale0, bias0, inp, gi_x, inh, i_u, i_u_b,
+            alpha, mu, dnew)
+    if not _on_card(_K2_SPEC + (("dnew", _F32, "rows"),), args):
+        return k2_inhibition_bwd_plain(*args)
+    dconv, dinp, dgix = (torch.empty_like(conv_i) for _ in range(3))
+    dinh = torch.empty_like(inh)
+    ws_w, ws_red = _partials("k2_inhibition_bwd", inh, C, 7)
+    _launch("int_cell_bwd", "k2_inhibition_bwd",
+            args + (dconv, dinp, dgix, dinh, ws_w, ws_red))
+    k2_inhibition_bwd.launches += 1
+    # rows of red: [di_u_b, dalpha, dmu, dmean, drstd, dscale, dbias]
+    red = ws_red.sum(dim=0)
+    return (dconv, red[3], red[4], red[5], red[6], dinp, dgix, dinh,
+            ws_w.sum(dim=0).to(_BF16), red[0], red[1], red[2])
+
+
+def k3_excitation_bwd(conv_e, mean1, rstd1, scale1, bias1, new_inh, inh, gated,
+                      exc, e_w, e_w_b, e_u, e_u_b, kappa, gamma, dnew):
+    """The K3 inputs and dnew [R,C] f32 -> one gradient per input, in the
+    inputs' order and dtypes; both gate biases get the same sum."""
+    args = (conv_e, mean1, rstd1, scale1, bias1, new_inh, inh, gated, exc,
+            e_w, e_w_b, e_u, e_u_b, kappa, gamma, dnew)
+    if not _on_card(_K3_SPEC + (("dnew", _F32, "rows"),), args):
+        return k3_excitation_bwd_plain(*args)
+    dconv, dgated = torch.empty_like(conv_e), torch.empty_like(gated)
+    dninh, dinh, dexc = (torch.empty_like(exc) for _ in range(3))
+    ws_w, ws_u, ws_red = _partials("k3_excitation_bwd", exc, C, C, 7)
+    _launch("int_cell_bwd", "k3_excitation_bwd",
+            args + (dconv, dninh, dinh, dgated, dexc, ws_w, ws_u, ws_red))
+    k3_excitation_bwd.launches += 1
+    # rows of red: [de_w_b = de_u_b, dkappa, dgamma, dmean, drstd, dscale, dbias]
+    red = ws_red.sum(dim=0)
+    return (dconv, red[3], red[4], red[5], red[6], dninh, dinh, dgated, dexc,
+            ws_w.sum(dim=0).to(_BF16), red[0], ws_u.sum(dim=0).to(_BF16),
+            red[0], red[1], red[2])
+
+
+# ------------------- differentiable phases (autograd glue) ------------------
+
+def _cotangent(d, like):
+    """A cotangent as the backward wrappers take it: contiguous, or zeros
+    where autograd passed None for an output nothing read."""
+    return torch.zeros_like(like) if d is None else d.contiguous()
+
+
+def _needed(ctx, grads):
+    return tuple(g if need else None
+                 for g, need in zip(grads, ctx.needs_input_grad))
+
+
+class K1Attention(torch.autograd.Function):
+    """``k1_attention`` with ``k1_attention_bwd`` as its backward."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        ctx.set_materialize_grads(False)
+        return _k1_launch(args) if args[0].is_cuda else k1_attention_plain(*args)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dgated, datt):
+        args = ctx.saved_tensors
+        dgated = _cotangent(dgated, args[1])
+        datt = None if datt is None else datt.contiguous()
+        return _needed(ctx, k1_attention_bwd(*args, dgated, datt))
+
+
+class K2Inhibition(torch.autograd.Function):
+    """``k2_inhibition`` with ``k2_inhibition_bwd`` as its backward."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        ctx.set_materialize_grads(False)
+        return _k2_launch(args) if args[0].is_cuda else k2_inhibition_plain(*args)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dnew):
+        args = ctx.saved_tensors
+        return _needed(ctx, k2_inhibition_bwd(*args, _cotangent(dnew, args[7])))
+
+
+class K3Excitation(torch.autograd.Function):
+    """``k3_excitation`` with ``k3_excitation_bwd`` as its backward."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        ctx.set_materialize_grads(False)
+        return _k3_launch(args) if args[0].is_cuda else k3_excitation_plain(*args)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dnew):
+        args = ctx.saved_tensors
+        return _needed(ctx, k3_excitation_bwd(*args, _cotangent(dnew, args[8])))
 
 
 def k1_attention(exc, att_x, a_u, a_u_b):
     """exc [R,C] f32, att_x [R,C] bf16, a_u [C,C] bf16, a_u_b [C] f32 ->
     (gated_exc [R,C] bf16, att [R,C] f32)."""
     args = (exc, att_x, a_u, a_u_b)
-    if not _on_card(_K1_SPEC, args):
-        return k1_attention_plain(*args)
-    gated = torch.empty_like(exc, dtype=_BF16)
-    att = torch.empty_like(exc)
-    _launch("k1_attention_fwd", args + (gated, att))
-    k1_attention.launches += 1
-    return gated, att
+    on_card = _on_card(_K1_SPEC, args)
+    if _differentiable(args):
+        return K1Attention.apply(*args)
+    return _k1_launch(args) if on_card else k1_attention_plain(*args)
 
 
 def k2_inhibition(conv_i, mean0, rstd0, scale0, bias0, inp, gi_x, inh,
@@ -181,12 +420,10 @@ def k2_inhibition(conv_i, mean0, rstd0, scale0, bias0, inp, gi_x, inh,
     rest [C] f32 -> new_inh [R,C] f32."""
     args = (conv_i, mean0, rstd0, scale0, bias0, inp, gi_x, inh, i_u, i_u_b,
             alpha, mu)
-    if not _on_card(_K2_SPEC, args):
-        return k2_inhibition_plain(*args)
-    out = torch.empty_like(inh)
-    _launch("k2_inhibition_fwd", args + (out,))
-    k2_inhibition.launches += 1
-    return out
+    on_card = _on_card(_K2_SPEC, args)
+    if _differentiable(args):
+        return K2Inhibition.apply(*args)
+    return _k2_launch(args) if on_card else k2_inhibition_plain(*args)
 
 
 def k3_excitation(conv_e, mean1, rstd1, scale1, bias1, new_inh, inh, gated,
@@ -195,14 +432,14 @@ def k3_excitation(conv_e, mean1, rstd1, scale1, bias1, new_inh, inh, gated,
     [C,C] bf16; the rest [C] f32 -> new_exc [R,C] f32."""
     args = (conv_e, mean1, rstd1, scale1, bias1, new_inh, inh, gated, exc,
             e_w, e_w_b, e_u, e_u_b, kappa, gamma)
-    if not _on_card(_K3_SPEC, args):
-        return k3_excitation_plain(*args)
-    out = torch.empty_like(exc)
-    _launch("k3_excitation_fwd", args + (out,))
-    k3_excitation.launches += 1
-    return out
+    on_card = _on_card(_K3_SPEC, args)
+    if _differentiable(args):
+        return K3Excitation.apply(*args)
+    return _k3_launch(args) if on_card else k3_excitation_plain(*args)
 
 
-KERNELS = (k1_attention, k2_inhibition, k3_excitation)
+FORWARD_KERNELS = (k1_attention, k2_inhibition, k3_excitation)
+BACKWARD_KERNELS = (k1_attention_bwd, k2_inhibition_bwd, k3_excitation_bwd)
+KERNELS = FORWARD_KERNELS + BACKWARD_KERNELS
 for _k in KERNELS:
     _k.launches = 0

@@ -1,4 +1,4 @@
-"""Carry JAX-package weights into the port.
+"""Carry JAX-package weights into the port, and the port's back.
 
 pathtracker_tpu names its flat params after the reference's state_dict keys
 and stores them in JAX layouts ([Cin, Cout] matmul kernels, HWIO convs, [C]
@@ -18,6 +18,8 @@ pathtracker_tpu/train/torch_import.py::export_reference_state_dict
     readout_dense_kernel  -> readout_dense.weight  [in,out] -> [out,in]
 
 The result loads into the port's InT with ``strict=True``.
+``to_jax_params`` is the inverse: a ``state_dict`` (or any {name: tensor}
+keyed like one, such as gradients) back to JAX names and layouts.
 """
 
 from __future__ import annotations
@@ -81,4 +83,44 @@ def export_reference_state_dict(params: dict) -> dict:
                 r"unit1\.(alpha|mu|gamma|kappa|w)$", key):
             arr = arr[:, None, None]  # [C] -> [C,1,1]
         out[key] = torch.tensor(np.ascontiguousarray(arr))  # a copy: checkpoint arrays are read-only
+    return out
+
+
+_IMPORT_RULES = [
+    (re.compile(r"^unit1\.bn\.(\d+)\.weight$"), lambda m: f"bn{m.group(1)}_scale"),
+    (re.compile(r"^unit1\.bn\.(\d+)\.bias$"), lambda m: f"bn{m.group(1)}_bias"),
+    (re.compile(r"^bn\.weight$"), lambda m: "bn_scale"),
+    (re.compile(r"^bn\.bias$"), lambda m: "bn_bias"),
+    (re.compile(r"^unit1\.(w_inh|w_exc|alpha|mu|gamma|kappa|w)$"), lambda m: m.group(1)),
+    (re.compile(r"^(?:unit1\.)?([A-Za-z_0-9]+)\.weight$"), lambda m: f"{m.group(1)}_kernel"),
+    (re.compile(r"^(?:unit1\.)?([A-Za-z_0-9]+)\.bias$"), lambda m: f"{m.group(1)}_bias"),
+]
+
+
+def to_jax_params(state_dict: dict) -> dict:
+    """The port's ``state_dict`` (or tensors keyed like it) -> JAX flat
+    params {name: f32 numpy array} in the JAX names and layouts: the inverse
+    of ``export_reference_state_dict``."""
+    out = {}
+    for key, value in state_dict.items():
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        name = None
+        for pattern, fn in _IMPORT_RULES:
+            m = pattern.match(key)
+            if m:
+                name = fn(m)
+                break
+        if name is None:
+            raise ValueError(f"no JAX counterpart for state_dict key {key!r}")
+        if key == "preproc.weight":
+            arr = arr[:, :, 0, 0, 0].T  # [C,3,1,1,1] -> [3,C]
+        elif key == "readout_dense.weight":
+            arr = arr.T  # [out,in] -> [in,out]
+        elif arr.ndim == 4 and arr.shape[2:] == (1, 1) and key != "target_conv.weight":
+            arr = arr[:, :, 0, 0].T  # [O,I,1,1] conv -> [I,O] matmul
+        elif arr.ndim == 4:
+            arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        elif arr.ndim == 3 and arr.shape[1:] == (1, 1):
+            arr = arr[:, 0, 0]  # [C,1,1] -> [C]
+        out[name] = np.ascontiguousarray(arr)
     return out

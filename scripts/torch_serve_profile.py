@@ -37,20 +37,22 @@ GROUPS = (  # first match wins; names are lower-cased
 )
 
 
-def _group(name: str) -> str:
+def _group(name: str, groups) -> str:
     low = name.lower()
-    for group, keys in GROUPS:
+    for group, keys in groups:
         if any(k in low for k in keys):
             return group
     return "other"
 
 
-def profile_path(infer, batch) -> None:
-    infer(batch)  # warm
+def profile_call(fn, groups=GROUPS, top: int = 8) -> None:
+    """Run ``fn()`` once warm, then once under torch.profiler; print its wall
+    time, the device's busy share of its span, and device time by group."""
+    fn()  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        infer(batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     kernels = [e for e in prof.events()
@@ -67,7 +69,7 @@ def profile_path(infer, batch) -> None:
     by_group, by_name = defaultdict(float), defaultdict(lambda: [0.0, 0])
     for e in kernels:
         dur = e.time_range.elapsed_us()
-        by_group[_group(e.name)] += dur
+        by_group[_group(e.name, groups)] += dur
         by_name[e.name][0] += dur
         by_name[e.name][1] += 1
     total = sum(by_group.values())
@@ -76,7 +78,7 @@ def profile_path(infer, batch) -> None:
     for group, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"  {group:30s} {us / 1e3:8.2f} ms  {us / total:6.1%}")
     print("  largest kernels:")
-    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"    {us / 1e3:8.2f} ms  x{n:<5d} {name[:110]}")
 
 
@@ -91,7 +93,8 @@ def main() -> int:
     for path, kw in (("fused", {}), ("eager", {"fused": False})):
         model = serve.build(ckpt=CHECKPOINT, length=64, bf16=True, **kw)
         print(f"{path} mixed InT, batch 128, T=64:")
-        profile_path(serve.make_inference_fn(model, "InT"), batch)
+        infer = serve.make_inference_fn(model, "InT")
+        profile_call(lambda: infer(batch))
     return 0
 
 

@@ -1,6 +1,6 @@
-"""pathtracker_torch on the card: the CUDA kernels against their plain
-versions at the serving path's width, and the fused InT cell against the
-eager cell. Every test here is marked ``gpu`` and skips where no CUDA card
+"""pathtracker_torch on the card: the CUDA kernels, forward and backward,
+against their plain versions at the main path's width, and the fused InT
+cell against the eager cell, outputs and gradients. Every test here is marked ``gpu`` and skips where no CUDA card
 is present. This file imports neither JAX nor pathtracker_tpu, so it also
 runs where they are not installed:
 
@@ -85,6 +85,117 @@ def test_cuda_kernels_match_plain(cuda, rows):
                 torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
 
 
+def _cotangents(rows, dev, seed=7):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(dtype):
+        return torch.randn((rows, C), generator=gen, device=dev).to(dtype)
+
+    return dict(dgated=r(BF16), datt=r(torch.float32), dnew=r(torch.float32))
+
+
+def _bwd_cases(d, ct):
+    """(name, wrapper, plain, arguments) for each backward kernel; K1 with
+    and without a cotangent for the attention map."""
+    k1 = [d[k] for k in K1_ARGS]
+    return [
+        ("k1+datt", F.k1_attention_bwd, F.k1_attention_bwd_plain,
+         k1 + [ct["dgated"], ct["datt"]]),
+        ("k1", F.k1_attention_bwd, F.k1_attention_bwd_plain, k1 + [ct["dgated"]]),
+        ("k2", F.k2_inhibition_bwd, F.k2_inhibition_bwd_plain,
+         [d[k] for k in K2_ARGS] + [ct["dnew"]]),
+        ("k3", F.k3_excitation_bwd, F.k3_excitation_bwd_plain,
+         [d[k] for k in K3_ARGS] + [ct["dnew"]]),
+    ]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [131072, 1000])
+def test_cuda_backward_kernels_match_plain(cuda, rows):
+    """Tolerances, cotangents being O(1), each relative to the output's
+    largest entry (at least 1). Row outputs: a transposed product takes its
+    cotangent rounded to bf16, so where kernel and plain version differ by
+    f32 ulps before that rounding one operand moves by a bf16 ulp: every
+    element within 2^-8, and all but one in a thousand within 1e-5 (f32) or
+    one bf16 ulp (bf16). Reductions over the rows (weight gradients,
+    per-channel sums): 1e-3 for f32 sums of ``rows`` terms taken in another
+    order, plus one bf16 ulp where the result is rounded to bf16."""
+    d, ct = _inputs(rows, cuda), _cotangents(rows, cuda)
+    problems = []
+    for name, wrapper, plain, args in _bwd_cases(d, ct):
+        before = wrapper.launches
+        got = wrapper(*args)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1, name
+        want = plain(*args)
+        assert len(got) == len(want), name
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert a.dtype == b.dtype and a.shape == b.shape and a.is_cuda, (name, i)
+            assert bool(torch.isfinite(a).all()), (name, i)
+            a32, b32 = a.float(), b.float()
+            diff = (a32 - b32).abs()
+            scale = max(b32.abs().max().item(), 1.0)
+            if a.shape[0] != rows:  # a reduction over the rows
+                tol = 1e-3 + (2.0 ** -7 if a.dtype == BF16 else 0.0)
+                if diff.max().item() > tol * scale:
+                    problems.append((name, i, "reduction", diff.max().item(), scale))
+                continue
+            if a.dtype == BF16:
+                mag = torch.maximum(a32.abs(), b32.abs()).clamp_min(1e-30)
+                tight = torch.pow(2.0, torch.floor(torch.log2(mag)) - 7)
+            else:
+                tight = torch.full_like(diff, 1e-5 * scale)
+            if bool((diff > tight.clamp_min(2.0 ** -8 * scale)).any()):
+                problems.append((name, i, "row", diff.max().item(), scale))
+            if (diff > tight).float().mean().item() > 1e-3:
+                problems.append((name, i, "share", (diff > tight).float().mean().item()))
+    assert not problems, problems
+
+
+@pytest.mark.gpu
+def test_cuda_backward_kernels_are_deterministic(cuda):
+    """No float atomics: two launches on the same inputs give the same bits,
+    the cross-row reductions included."""
+    d, ct = _inputs(131072, cuda), _cotangents(131072, cuda)
+    for name, wrapper, _, args in _bwd_cases(d, ct):
+        first = wrapper(*args)
+        second = wrapper(*args)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(first, second)):
+            assert torch.equal(a, b), (name, i)
+
+
+@pytest.mark.gpu
+def test_cuda_fused_int_gradients_match_eager(cuda):
+    """Gradients through the fused cell on the card (backward kernels, the
+    recomputing step) against the eager mixed cell's, normalised by each
+    parameter's largest entry: atol 6e-3 as tests/test_int_fused.py holds the
+    JAX fused cell to (the paths round their bf16 cotangents at different
+    points). Each forward kernel launches 2T times, each backward one T."""
+    x = torch.randn((4, 3, 5, 16, 16), generator=torch.Generator().manual_seed(0))
+    x = x.to(cuda)
+    fused = InT(dimensions=C, timesteps=5, kernel_size=5, dtype="bfloat16",
+                device=cuda)
+    eager = InT(dimensions=C, timesteps=5, kernel_size=5, dtype="bfloat16",
+                fused=False, device=cuda)
+    eager.load_state_dict(fused.state_dict())
+    before = [k.launches for k in F.KERNELS]
+    grads = {}
+    for name, model in (("fused", fused), ("eager", eager)):
+        logit, _ = model(x)
+        logit.square().sum().backward()
+        grads[name] = {k: p.grad for k, p in model.named_parameters()}
+    assert [k.launches - b for k, b in zip(F.KERNELS, before)] == [10] * 3 + [5] * 3
+    for key, want in grads["eager"].items():
+        got = grads["fused"][key]
+        if want is None:
+            assert got is None, key
+            continue
+        scale = max(want.abs().max().item(), 1e-3)
+        torch.testing.assert_close(got / scale, want / scale, rtol=0, atol=6e-3,
+                                   msg=lambda m: f"{key}: {m}")
+
+
 @pytest.mark.gpu
 def test_cuda_fused_int_matches_eager(cuda):
     """The fused cell on the card against the eager mixed cell with the same
@@ -102,7 +213,7 @@ def test_cuda_fused_int_matches_eager(cuda):
     with torch.no_grad():
         l1, s1, g1 = fused(x, testmode=True)
         l0, s0, g0 = eager(x, testmode=True)
-    assert [k.launches - b for k, b in zip(F.KERNELS, before)] == [5, 5, 5]
+    assert [k.launches - b for k, b in zip(F.KERNELS, before)] == [5, 5, 5, 0, 0, 0]
     torch.testing.assert_close(l1, l0, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(s1, s0, rtol=1e-3, atol=1e-3)
     torch.testing.assert_close(g1, g0, rtol=1e-3, atol=1e-3)

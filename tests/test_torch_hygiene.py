@@ -20,7 +20,10 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "msgpack", "optax", "pathtracker_tpu"}
 
 
 def _port_files():
+    scripts = os.path.join(ROOT, "scripts")
     files = [os.path.join(ROOT, "chip_smoke.py")]
+    files += [os.path.join(scripts, n) for n in os.listdir(scripts)
+              if n.startswith("torch_") and n.endswith(".py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(files)

@@ -155,11 +155,18 @@ def test_wrapper_checks_and_takes_plain_on_cpu(wrapper, plain, names):
             and a.shape[0] == 100 else a for a in args]
     with pytest.raises(ValueError, match="expected"):
         wrapper(*wide)
+    # An input that requires grad goes through the autograd.Function: same
+    # values, and a gradient comes back (tests/test_torch_kernels_bwd.py
+    # holds it against the plain backward).
     grad = list(args)
-    grad[names.index("exc" if "exc" in names else "inh")] = (
-        args[names.index("exc" if "exc" in names else "inh")].clone().requires_grad_())
-    with pytest.raises(NotImplementedError, match="backward"):
-        wrapper(*grad)
+    state = names.index("exc" if "exc" in names else "inh")
+    grad[state] = args[state].clone().requires_grad_()
+    out = wrapper(*grad)
+    out = out if isinstance(out, tuple) else (out,)
+    for a, b in zip(out, want if isinstance(want, tuple) else (want,)):
+        assert a.requires_grad and torch.equal(a, b)
+    (dstate,) = torch.autograd.grad(out[-1].sum(), [grad[state]])
+    assert dstate.shape == args[state].shape and torch.isfinite(dstate).all()
 
 
 def test_supported_and_build_need_the_toolkit(monkeypatch):
@@ -167,6 +174,12 @@ def test_supported_and_build_need_the_toolkit(monkeypatch):
     assert _native.library_path("int_cell").name.startswith("libint_cell_")
     assert set(_native.SIGNATURES["int_cell"]) == {
         "k1_attention_fwd", "k2_inhibition_fwd", "k3_excitation_fwd"}
+    assert set(_native.SIGNATURES["int_cell_bwd"]) == {
+        "k1_attention_bwd", "k2_inhibition_bwd", "k3_excitation_bwd"}
+    assert _native.library_path("int_cell_bwd").name.startswith("libint_cell_bwd_")
+    assert [k.__name__ for k in T.KERNELS] == [
+        "k1_attention", "k2_inhibition", "k3_excitation",
+        "k1_attention_bwd", "k2_inhibition_bwd", "k3_excitation_bwd"]
     monkeypatch.setenv("PATH", "")
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     monkeypatch.setattr(_native, "library_path",

@@ -41,7 +41,27 @@ Phases, printed in order; any failure exits non-zero before the last line:
      then, over the three batches in turn, p50 step latency, clips/s and peak
      memory of the fused and the eager (recomputing) path, and of one
      batch-180 step;
-  8. one JSON line naming every kernel with its numbers.
+  8. the three correlation kernels (csrc/correlation.cu) at the rntsm serving
+     path's size (N = 8 clips x 63 frame pairs = 504 images of 32x32x64,
+     patch 15) on seeded L2-normalised features and an N(0,1) cotangent:
+     each through its wrapper against its plain version with the max error
+     and the stated tolerance, the backward kernels bit-identical on two
+     launches, one dilated and one odd-sized case at small N, and the same
+     times and bounds as phase 3;
+  9. serve rntsm (TSM-ResNet50 + MotionSqueeze at the registry's width, f32,
+     seeded init: the repository has no rntsm checkpoint) through
+     serve.build and make_inference_fn: 3 requests of 8 rendered uint8 clips
+     (T=64): finite scores in [0, 1], one forward-kernel launch per request,
+     logits against the same weights through the plain correlation
+     (fused=False), the count of pixels whose argmax over the volume differs
+     between kernel and plain version, p50 request latency, clips/s, peak
+     memory;
+ 10. train rntsm through make_train_step with remat=True, Adam(3e-4): parameter
+     gradients through the kernels against the plain correlation at T=8, then
+     3 steps of batch 4, T=64 on one batch: finite stats, one launch of each
+     of the three kernels per step, the last loss below the first, step
+     latency, clips/s, peak memory;
+ 11. one JSON line naming every kernel with its numbers.
 The last line is {"ok": true, "device": {...}}. It needs a CUDA card and
 the repository beside it; without either it exits non-zero and prints no
 result.
@@ -51,6 +71,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -120,6 +141,33 @@ MIN_ACCURACY = 0.6
 # there the trained recurrence is chaotic and f32 rounding differences grow
 # to O(1) by T=64, so the clips are rendered.
 DOT_SIZE, DISTRACTORS = 2, 14
+
+# rntsm (TSM-ResNet50 + MotionSqueeze), f32 as in the JAX package.
+TSM_BATCH = 8  # clips per served request: 8 x 63 frame pairs = 504 images
+TSM_TRAIN_BATCH, TSM_TRAIN_STEPS = 4, 3
+TSM_TIMED_REQUESTS = 3  # per path, interleaved, after the counted run
+PATCH, CORR_C = 15, 64
+CORR_N = TSM_BATCH * (TIMESTEPS - 1)
+# Correlation kernels vs their plain versions. Forward: an f32 sum of 64
+# products of L2-normalised features (|sum| <= 1) taken in another order.
+# Backward: an f32 sum of 225 terms g*f, g ~ N(0,1) and |f| <= 1, entries of
+# magnitude up to ~8, in another order.
+CORR_ATOL_FWD = 1e-5
+CORR_ATOL_BWD = 5e-5
+# rntsm logits, kernels vs plain correlation on the same weights and clips.
+# The two volumes differ by f32 rounding; where a pixel's two largest entries
+# are that close the argmax flips and its soft-argmax window moves by whole
+# displacements (the count is printed), which the flow refinement, the BNs
+# and the average over 64 x 1024 positions per clip carry to the logit.
+TSM_LOGIT_ATOL = 1e-3
+# rntsm gradients, kernels vs plain correlation, each normalised by its
+# largest entry: besides the argmax flips, a ReLU input within rounding of
+# zero takes another mask in the two runs, which moves one channel's gradient
+# by percents and everything upstream by ~1e-3 (tests/test_torch_tsm_resnet.py);
+# at batch 4, T=8 the largest gap measured 1.6e-2 and the largest mean gap
+# 1.1e-2. A wiring error moves the gradients by O(1).
+TSM_GRAD_MAX, TSM_GRAD_MEAN = 0.2, 5e-2
+TSM_GRAD_TIMESTEPS = 8
 
 
 def fail(msg: str):
@@ -457,8 +505,10 @@ def backward_kernel_phase(F) -> list[dict]:
 
 
 def _loss_gradients(model, imgs) -> dict:
-    """Gradients of sum(logit^2) (tests/test_int_fused.py's loss) by name."""
-    logit, _ = model(imgs)
+    """Gradients of sum(logit^2) (tests/test_int_fused.py's loss) by name;
+    the model returns (logit, penalty) or the logits alone."""
+    out = model(imgs)
+    logit = out[0] if isinstance(out, tuple) else out
     params = dict(model.named_parameters())
     grads = torch.autograd.grad(logit.square().sum(), list(params.values()),
                                 allow_unused=True)
@@ -604,6 +654,277 @@ def train_phase(serve, F, kernel_rows: list[dict], rendered) -> None:
           f"{float(stats['loss']):.4f}", flush=True)
 
 
+def _bound(nbytes: int, f32_ops: float) -> tuple[float, str]:
+    bytes_ms = nbytes / MEMORY_BYTES_PER_S * 1e3
+    ops_ms = f32_ops / F32_FLOP_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def _in_image_terms(size: int, patch: int, dilation: int) -> int:
+    """Over one axis: the (position, displacement) pairs whose shifted
+    position lies inside the image; the others multiply by padding."""
+    r = (patch - 1) // 2 * dilation
+    return sum(0 <= p + d * dilation - r < size
+               for p in range(size) for d in range(patch))
+
+
+def correlation_phase(Co) -> list[dict]:
+    dev = torch.device(DEVICE)
+
+    def inputs(n, h, w, c, patch, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        f1 = Co.l2_normalize(torch.randn((n, h, w, c), generator=gen, device=dev))
+        f2 = Co.l2_normalize(torch.randn((n, h, w, c), generator=gen, device=dev))
+        return f1, f2, torch.randn((n, h, w, patch * patch), generator=gen, device=dev)
+
+    def errors(f1, f2, g, patch, dilation):
+        got = (Co.correlation(f1, f2, patch, dilation),
+               Co.correlation_bwd_f1(g, f2, patch, dilation),
+               Co.correlation_bwd_f2(g, f1, patch, dilation))
+        again = (Co.correlation_bwd_f1(g, f2, patch, dilation),
+                 Co.correlation_bwd_f2(g, f1, patch, dilation))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got[1:], again)):
+            fail("a correlation backward kernel gave different bits on two launches")
+        want = (Co.correlation_plain(f1, f2, patch, dilation),
+                Co.correlation_bwd_f1_plain(g, f2, patch, dilation),
+                Co.correlation_bwd_f2_plain(g, f1, patch, dilation))
+        errs = []
+        for a, b, atol in zip(got, want, (CORR_ATOL_FWD, CORR_ATOL_BWD, CORR_ATOL_BWD)):
+            if a.shape != b.shape or a.dtype != b.dtype or not torch.isfinite(a).all():
+                fail(f"correlation output {a.dtype} {tuple(a.shape)} vs plain "
+                     f"{b.dtype} {tuple(b.shape)}, or not finite")
+            errs.append((a - b).abs().max().item())
+            if errs[-1] > atol:
+                fail(f"correlation kernel off by {errs[-1]:.3g} > {atol}")
+        return errs
+
+    for label, (n, h, w, c, patch, dilation) in (
+            ("dilated", (2, 24, 24, 16, 5, 2)), ("odd-sized", (3, 19, 27, 10, 7, 1))):
+        errs = errors(*inputs(n, h, w, c, patch, 11), patch, dilation)
+        print(f"kernel correlation, {label} case N={n} {h}x{w}x{c} patch {patch} "
+              f"dilation {dilation}: max_abs_err fwd {errs[0]:.3g}, bwd_f1 {errs[1]:.3g}, "
+              f"bwd_f2 {errs[2]:.3g} (held: {CORR_ATOL_FWD} forward, {CORR_ATOL_BWD} "
+              f"backward)", flush=True)
+
+    f1, f2, g = inputs(CORR_N, SIDE, SIDE, CORR_C, PATCH, 3)
+    errs = errors(f1, f2, g, PATCH, 1)
+    # The products that involve a real f2 (f1) pixel: one multiply-add each.
+    terms = CORR_N * CORR_C * _in_image_terms(SIDE, PATCH, 1) ** 2
+    specs = [
+        ("correlation_fwd", Co.correlation, Co.correlation_plain, (f1, f2),
+         "pathtracker_tpu/ops/correlation.py:82"),
+        ("correlation_bwd_f1", Co.correlation_bwd_f1, Co.correlation_bwd_f1_plain, (g, f2),
+         "pathtracker_tpu/ops/correlation.py:109 (the XLA VJP; no Pallas kernel)"),
+        ("correlation_bwd_f2", Co.correlation_bwd_f2, Co.correlation_bwd_f2_plain, (g, f1),
+         "pathtracker_tpu/ops/correlation.py:109 (the XLA VJP; no Pallas kernel)"),
+    ]
+    rows = []
+    for (name, wrapper, plain, args, replaces), err in zip(specs, errs):
+        ms = device_ms(lambda: wrapper(*args, PATCH, 1), calls=5, replays=4)
+        plain_ms = device_ms(lambda: plain(*args, PATCH, 1), calls=1, replays=2)
+        per_call_ms = call_ms(lambda: wrapper(*args, PATCH, 1), iters=20, warmup=2)
+        out_elems = g.numel() if name == "correlation_fwd" else f1.numel()
+        nbytes = 4 * (sum(t.numel() for t in args) + out_elems)
+        bound_ms, bound_by = _bound(nbytes, 2.0 * terms)
+        rows.append(dict(name=name, route="cuda",
+                         source="pathtracker_torch/csrc/correlation.cu",
+                         replaces=replaces, launches=0, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None))
+        print(f"kernel {name}: N={CORR_N} {SIDE}x{SIDE}x{CORR_C} patch {PATCH}: "
+              f"max_abs_err {err:.3g} (held: "
+              f"{CORR_ATOL_FWD if name == 'correlation_fwd' else CORR_ATOL_BWD})"
+              f"{'' if name == 'correlation_fwd' else '; bit-identical on two launches'}"
+              f" | device {ms:.3f} ms/launch, plain {plain_ms:.2f} ms, bound "
+              f"{bound_ms:.3f} ms by {bound_by} ({nbytes / 1e6:.0f} MB, "
+              f"{2 * terms / 1e9:.2f} GFLOP in-image; {bound_ms / ms:.0%} of bound) | "
+              f"wrapper {per_call_ms:.3f} ms/call from Python", flush=True)
+    return rows
+
+
+def _flipped_argmax_pixels(Co, model, imgs) -> tuple[int, int]:
+    """The MotionSqueeze's matching features for ``imgs``, through the
+    kernel and the plain correlation: (pixels whose argmax over the ReLU'd
+    volume differs, pixels)."""
+    seen = {}
+    hook = model.chnl_reduction.register_forward_hook(
+        lambda mod, args, out: seen.__setitem__("red", out))
+    with torch.inference_mode():
+        model(imgs)
+        hook.remove()
+        b, t = imgs.shape[0], imgs.shape[2]
+        red = seen["red"].reshape(b, t, *seen["red"].shape[1:])
+        pre = Co.l2_normalize(red[:, :-1].reshape(b * (t - 1), *red.shape[2:]))
+        post = Co.l2_normalize(red[:, 1:].reshape(b * (t - 1), *red.shape[2:]))
+        a = torch.relu(Co.correlation(pre, post, model.patch)).argmax(dim=-1)
+        p = torch.relu(Co.correlation_plain(pre, post, model.patch)).argmax(dim=-1)
+    return int((a != p).sum().item()), a.numel()
+
+
+def rntsm_serve_phase(serve, Co, kernel_rows: list[dict]) -> None:
+    from pathtracker_torch.data.pathtracker import render_batch
+    from pathtracker_torch.data.prepare import prepare_batch
+
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    models = {"fused": serve.build(model="rntsm", length=TIMESTEPS, device=dev),
+              "plain": serve.build(model="rntsm", length=TIMESTEPS, fused=False,
+                                   device=dev)}
+    if not models["fused"].fused or models["plain"].fused:
+        fail("rntsm: fused=True/False did not reach the model")
+    for a, b in zip(models["fused"].parameters(), models["plain"].parameters()):
+        if not torch.equal(a, b):
+            fail("rntsm: the two seeded inits differ")
+    n_params = sum(p.numel() for p in models["fused"].parameters())
+    logit_fn = {k: serve.make_inference_fn(m, "rntsm", probs=False)
+                for k, m in models.items()}
+    infer = serve.make_inference_fn(models["fused"], "rntsm")
+    batches = [torch.from_numpy(render_batch(100 + seed, TSM_BATCH, TIMESTEPS,
+                                             n_distractors=DISTRACTORS,
+                                             dot_size=DOT_SIZE)[0]).to(dev)
+               for seed in range(REQUESTS)]
+    for fn in logit_fn.values():  # warm-up: cuDNN plans, kernel load
+        fn(batches[0])
+    torch.cuda.synchronize()
+    print(f"rntsm serve: built 2 models ({n_params / 1e6:.1f} M parameters, layers "
+          f"{models['fused'].layers}, patch {models['fused'].patch}, f32, seeded init), "
+          f"rendered {REQUESTS * TSM_BATCH} clips, warmed up in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # The main path: counts from 0, three requests, each one forward launch.
+    for k in Co.KERNELS:
+        k.launches = 0
+    for i, batch in enumerate(batches):
+        before = [k.launches for k in Co.KERNELS]
+        out = infer(batch)
+        torch.cuda.synchronize()
+        rose = [k.launches - b for k, b in zip(Co.KERNELS, before)]
+        if rose != [1, 0, 0]:
+            fail(f"rntsm request {i}: kernel launches rose by {rose}, expected [1, 0, 0]")
+        if out.shape != (TSM_BATCH,) or out.dtype != torch.float32:
+            fail(f"rntsm request {i}: scores {out.dtype} {tuple(out.shape)}")
+        if not (torch.isfinite(out).all() and (out >= 0).all() and (out <= 1).all()):
+            fail(f"rntsm request {i}: scores not finite in [0, 1]")
+    for row, k in zip(kernel_rows, Co.KERNELS):
+        row["launches_serve"] = k.launches
+    print(f"rntsm serve: {REQUESTS} requests of {TSM_BATCH} clips (T={TIMESTEPS}) "
+          f"through make_inference_fn, kernel launches "
+          f"{[k.launches for k in Co.KERNELS]} (forward, bwd_f1, bwd_f2)", flush=True)
+
+    logits = {k: torch.cat([fn(batch) for batch in batches]) for k, fn in logit_fn.items()}
+    gap = (logits["fused"] - logits["plain"]).abs().max().item()
+    imgs, _ = prepare_batch(batches[0], torch.zeros(TSM_BATCH, dtype=torch.uint8, device=dev))
+    flipped, pixels = _flipped_argmax_pixels(Co, models["fused"], imgs)
+    print(f"rntsm serve: logits kernels vs plain correlation max gap {gap:.3g} (held: "
+          f"{TSM_LOGIT_ATOL}; logits span {logits['plain'].min().item():.4f} .. "
+          f"{logits['plain'].max().item():.4f}); argmax over the volume differs at "
+          f"{flipped} of {pixels} pixels of request 0", flush=True)
+    if not gap <= TSM_LOGIT_ATOL:
+        fail(f"rntsm logits differ by {gap:.3g} > {TSM_LOGIT_ATOL}")
+
+    times = {"fused": [], "plain": []}
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TSM_TIMED_REQUESTS):
+        for path in (("fused", "plain") if i % 2 == 0 else ("plain", "fused")):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logit_fn[path](batches[i % REQUESTS])
+            torch.cuda.synchronize()
+            times[path].append(time.perf_counter() - t)
+    for path, ts in times.items():
+        print(f"rntsm serve {path}: p50 request latency {statistics.median(ts) * 1e3:.2f} ms, "
+              f"{TSM_BATCH * len(ts) / sum(ts):.2f} clips/s over {len(ts)} requests of "
+              f"{TSM_BATCH} clips (T={TIMESTEPS})", flush=True)
+    print(f"rntsm serve: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          "GiB over the timed requests", flush=True)
+
+
+def rntsm_train_phase(serve, Co, kernel_rows: list[dict]) -> None:
+    from pathtracker_torch.data.pathtracker import render_batch
+    from pathtracker_torch.data.prepare import prepare_batch
+    from pathtracker_torch.train.steps import (TRAIN_KEYS, make_optimizer,
+                                               make_train_step)
+
+    dev = torch.device(DEVICE)
+    clips, labels = render_batch(200, TSM_TRAIN_BATCH, TIMESTEPS,
+                                 n_distractors=DISTRACTORS, dot_size=DOT_SIZE)
+    clips, labels = torch.from_numpy(clips).to(dev), torch.from_numpy(labels).to(dev)
+
+    # Gradients through the kernels against the plain correlation, short clips.
+    imgs, _ = prepare_batch(clips[:, :TSM_GRAD_TIMESTEPS], labels)
+    grads = {}
+    before = [k.launches for k in Co.KERNELS]
+    for path, kw in (("fused", {}), ("plain", {"fused": False})):
+        model = serve.build(model="rntsm", length=TSM_GRAD_TIMESTEPS, remat_blocks=True,
+                            device=dev, **kw).train()
+        grads[path] = _loss_gradients(model, imgs)
+        del model
+    rose = [k.launches - b for k, b in zip(Co.KERNELS, before)]
+    if rose != [1, 1, 1]:
+        fail(f"rntsm gradients: kernel launches rose by {rose}, expected [1, 1, 1]")
+    worst_max, worst_mean = (0.0, ""), (0.0, "")
+    for key, ref in grads["plain"].items():
+        got = grads["fused"][key]
+        if not torch.isfinite(got).all():
+            fail(f"rntsm gradient of {key} is not finite")
+        gaps = (got - ref).abs() / ref.abs().max().clamp_min(1e-3)
+        worst_max = max(worst_max, (gaps.max().item(), key))
+        worst_mean = max(worst_mean, (gaps.mean().item(), key))
+    print(f"rntsm gradients, batch {TSM_TRAIN_BATCH}, T={TSM_GRAD_TIMESTEPS}, remat: "
+          f"kernels vs plain correlation, each gradient normalised by its largest "
+          f"entry: largest gap {worst_max[0]:.4g} (in {worst_max[1]}; held: "
+          f"{TSM_GRAD_MAX}), largest mean gap {worst_mean[0]:.4g} (in {worst_mean[1]}; "
+          f"held: {TSM_GRAD_MEAN})", flush=True)
+    worst_max, worst_mean = worst_max[0], worst_mean[0]
+    if worst_max > TSM_GRAD_MAX or worst_mean > TSM_GRAD_MEAN:
+        fail("rntsm gradients through the kernels and the plain correlation differ")
+    del grads
+    torch.cuda.empty_cache()
+
+    model = serve.build(model="rntsm", length=TIMESTEPS, remat_blocks=True,
+                        device=dev).train()
+    if not (model.remat and model.fused):
+        fail("rntsm: remat_blocks/fused did not reach the model")
+    step = make_train_step(model, "rntsm", make_optimizer(LEARNING_RATE))
+    # Warm cuDNN's backward plans at this shape; weights untouched.
+    model(torch.zeros((TSM_TRAIN_BATCH, 3, TIMESTEPS, SIDE, SIDE), device=dev)).sum().backward()
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+
+    # The main path: counts from 0; each step one launch of each kernel.
+    for k in Co.KERNELS:
+        k.launches = 0
+    losses, times = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TSM_TRAIN_STEPS):
+        before = [k.launches for k in Co.KERNELS]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stats = step(clips, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        rose = [k.launches - b for k, b in zip(Co.KERNELS, before)]
+        if rose != [1, 1, 1]:
+            fail(f"rntsm train step {i}: kernel launches rose by {rose}, expected [1, 1, 1]")
+        if set(stats) != set(TRAIN_KEYS) or not all(np.isfinite(v) for v in stats.values()):
+            fail(f"rntsm train step {i}: stats {stats}")
+        losses.append(float(stats["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    for row, k in zip(kernel_rows, Co.KERNELS):
+        row["launches_train"] = k.launches
+        row["launches"] = row.get("launches_serve", 0) + k.launches
+    print(f"rntsm train: {TSM_TRAIN_STEPS} steps of batch {TSM_TRAIN_BATCH} (T={TIMESTEPS}, "
+          f"remat, Adam {LEARNING_RATE}) through make_train_step, kernel launches "
+          f"{[k.launches for k in Co.KERNELS]} (forward, bwd_f1, bwd_f2); losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}", flush=True)
+    if not losses[-1] < losses[0]:  # every step saw the same batch
+        fail(f"rntsm loss on the repeated batch did not fall: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    print(f"rntsm train: p50 step latency {statistics.median(times) * 1e3:.2f} ms, "
+          f"{TSM_TRAIN_BATCH * len(times) / sum(times):.2f} clips/s over {len(times)} steps; "
+          f"peak device memory {peak / 2**30:.2f} GiB", flush=True)
+
+
 def resource_lines(log: str) -> list[str]:
     """'kernel: N registers, S bytes smem, spills' from ptxas -v's output."""
     out, name, spill = [], None, ""
@@ -613,13 +934,16 @@ def resource_lines(log: str) -> list[str]:
             name = next((k for k in ("k1_bwd_kernel", "k2_bwd_kernel", "k3_bwd_kernel",
                                      "k1_kernel", "k2_kernel", "k3_kernel")
                          if k in mangled), mangled)
+            templated = re.search(r"(corr_\w+?_kernel)I((?:Lb[01]E)+)", mangled)
+            if templated:  # corr_bwd_kernel<GATHER, VEC>, corr_fwd_kernel<VEC>
+                flags = re.findall(r"Lb([01])E", templated.group(2))
+                name = f"{templated.group(1)}<{', '.join(flags)}>"
         elif "spill" in line and name:
             spill = line.strip()
         elif "Used" in line and name:
             out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
             name = None
     return out
-
 
 
 def main() -> int:
@@ -634,6 +958,7 @@ def main() -> int:
     from pathtracker_torch.data.pathtracker import render_batch
     from pathtracker_torch.eval import serve
     from pathtracker_torch.ops import _native
+    from pathtracker_torch.ops import correlation as Co
     from pathtracker_torch.ops import int_fused as F
 
     print(card_line(), flush=True)
@@ -653,6 +978,14 @@ def main() -> int:
     kernel_rows += backward_kernel_phase(F)
     gradient_phase(serve, F, rendered)
     train_phase(serve, F, kernel_rows, rendered)
+    del rendered
+    torch.cuda.empty_cache()
+    correlation_rows = correlation_phase(Co)
+    torch.cuda.empty_cache()
+    rntsm_serve_phase(serve, Co, correlation_rows)
+    torch.cuda.empty_cache()
+    rntsm_train_phase(serve, Co, correlation_rows)
+    kernel_rows += correlation_rows
     if any(row["launches"] <= 0 for row in kernel_rows):
         fail(f"a kernel was never launched on the main paths: {kernel_rows}")
     print(json.dumps({"kernels": kernel_rows}), flush=True)

@@ -1,8 +1,11 @@
 """Engine: model selection from parsed flags and forward-family dispatch
-(pathtracker_tpu/engine.py:33-129), for the families this slice ports.
+(pathtracker_tpu/engine.py:33-129), for the families the port builds: the
+recurrent InT family and, of the 'torchvision' family, ``rntsm``.
 """
 
 from __future__ import annotations
+
+import torch
 
 from pathtracker_torch.models.registry import (family, needs_coord_channels,  # noqa: F401
                                                model_selector as _build)
@@ -24,6 +27,15 @@ def model_selector(args, timesteps: int, device=None, **model_kwargs):
         raise NotImplementedError(
             f"--algo {algo!r}: Neumann RBP comes with a later slice of "
             "pathtracker_torch (ROADMAP.md queue 1 item 8)")
+    if getattr(args, "remat_blocks", False):
+        # Per-residual-block rematerialization for rntsm, whose no-stride
+        # trunk keeps full 32x32 maps through 1024/2048-wide stages: without
+        # it a T=64 batch's backprop residuals do not fit the device.
+        if args.model != "rntsm":
+            raise NotImplementedError(
+                f"--remat-blocks is wired for 'rntsm'; {args.model!r} fits "
+                "without it (the InT family recomputes its steps already)")
+        kwargs["remat"] = True
     return _build(
         args.model,
         timesteps=timesteps,
@@ -40,11 +52,19 @@ def model_step(model, imgs, model_name: str, test: bool = False,
     """Forward dispatch (reference utils/engine.py:42-72). Returns
     (output, jv_penalty) or, with test=True, (output, states, gates).
     ``generator`` is the train step's, for models with stochastic layers;
-    the recurrent family has none and ignores it."""
-    if family(model_name) != "recurrent":
+    the ported models have none and ignore it. The 'torchvision' family's
+    forward returns the logits only: its penalty is ones(1), its states and
+    gates None."""
+    fam = family(model_name)
+    if fam == "torchvision":
+        output = model(imgs)
+        if test:
+            return output, None, None
+        return output, torch.ones((1,), dtype=torch.float32, device=output.device)
+    if fam != "recurrent":
         raise NotImplementedError(
-            f"{model_name!r}: the {family(model_name)} forward family comes "
-            "with the feedforward-zoo slice of pathtracker_torch")
+            f"{model_name!r}: the {fam} forward family comes with a later "
+            "slice of pathtracker_torch")
     if test:
         return model(imgs, testmode=True)
     return model(imgs)

@@ -20,7 +20,7 @@ import torch
 from pathtracker_torch import engine
 from pathtracker_torch.data.prepare import prepare_batch
 from pathtracker_torch.train.checkpoint import load_params
-from pathtracker_torch.train.torch_import import export_reference_state_dict
+from pathtracker_torch.train.torch_import import state_dict_from_jax
 
 
 def make_inference_fn(model, model_name: str, probs: bool = True,
@@ -45,16 +45,19 @@ def make_inference_fn(model, model_name: str, probs: bool = True,
 
 def build(model: str = "InT", ckpt: str | None = None, length: int = 64,
           dimensions: int = 32, fb_kernel_size: int = 7, bf16: bool = False,
-          pretrained: bool = False, device=None, **model_kwargs):
-    """Model for serving on ``device`` (``None`` means cuda), with the
-    weights of ``ckpt`` (a JAX-package msgpack checkpoint) or, without one,
-    its seeded init. ``model_kwargs`` reach the model's constructor (e.g.
-    ``fused=False`` for the eager cell)."""
+          pretrained: bool = False, remat_blocks: bool = False, device=None,
+          **model_kwargs):
+    """Model (``InT`` family or ``rntsm``) for serving on ``device``
+    (``None`` means cuda), with the weights of ``ckpt`` (a JAX-package
+    msgpack checkpoint of that model) or, without one, its seeded init.
+    ``model_kwargs`` reach the model's constructor (e.g. ``fused=False`` for
+    the eager cell or the plain correlation)."""
     args = SimpleNamespace(model=model, dimensions=dimensions,
                            fb_kernel_size=fb_kernel_size, bf16=bf16,
-                           pretrained=pretrained, algo="bptt")
+                           pretrained=pretrained, algo="bptt",
+                           remat_blocks=remat_blocks)
     net = engine.model_selector(args, length, device=device, **model_kwargs)
     if ckpt:
-        net.load_state_dict(export_reference_state_dict(load_params(ckpt)),
+        net.load_state_dict(state_dict_from_jax(model, load_params(ckpt)),
                             strict=True)
     return net.eval()

@@ -1,8 +1,8 @@
 """Model registry: name -> constructor (pathtracker_tpu/models/registry.py).
 
-This slice of the port builds the InT family; every other reference
-``--model`` name raises ``NotImplementedError`` naming the slice that ports
-it. MODEL_FAMILY mirrors the three forward-contract families of the
+The port builds the InT family and ``rntsm`` (TSM-ResNet50 with
+MotionSqueeze); every other reference ``--model`` name raises
+``NotImplementedError`` naming the slice that ports it. MODEL_FAMILY mirrors the three forward-contract families of the
 reference's model_step (reference utils/engine.py:29-30,42-72):
   'recurrent'    forward(x) -> (logit, jv_penalty); testmode adds states/gates
   'torchvision'  forward(x) -> logit only
@@ -42,7 +42,8 @@ INT_VARIANTS = {
 _RECURRENT_ZOO = ("fc", "hgru", "hgru_v2", "clock_hgru", "clock_hgru_fixed",
                   "gru", "convlstm", "stlstm", "fflstm", "lrcn", "lrcn_last",
                   "ffnet")
-_FEEDFORWARD_ZOO = tuple(MODEL_FAMILY) + ("timesformer", "performer", "lambda")
+_FEEDFORWARD_ZOO = tuple(n for n in MODEL_FAMILY if n != "rntsm") + (
+    "timesformer", "performer", "lambda")
 
 
 def family(model_name: str) -> str:
@@ -72,13 +73,17 @@ def model_selector(model_name: str, timesteps: int, fb_kernel_size: int = 7,
         raise NotImplementedError(
             f"{model_name!r} is not ported yet: the feedforward zoo comes with "
             "a later slice of pathtracker_torch (ROADMAP.md queue 1 item 12)")
-    if model_name not in INT_VARIANTS:
+    if model_name not in INT_VARIANTS and model_name != "rntsm":
         raise NotImplementedError(f"Model not found: {model_name!r}")
     if pretrained:
         warnings.warn(
             "--pretrained: no pretrained weights exist for "
             f"{model_name!r}; using the pretrained input normalization only.",
             stacklevel=2)
+    if model_name == "rntsm":
+        from pathtracker_torch.models import tsm_resnet
+        return tsm_resnet.resnet50_tsm(num_segments=8, flow_estimation=True,
+                                       device=device, **kwargs)
     return int_circuit.InT(dimensions=dimensions, timesteps=timesteps,
                            kernel_size=fb_kernel_size, device=device,
                            **INT_VARIANTS[model_name], **kwargs)

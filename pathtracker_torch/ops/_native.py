@@ -9,11 +9,14 @@ library is loaded with ``ctypes``. Nothing here runs at import: the first
 launch builds and loads, and ``build()`` does it ahead of time, one ``nvcc``
 per source, all at once.
 
-Every exported kernel function takes its tensors' device pointers, the row
-count and the CUDA stream, launches on that stream without synchronising or
-allocating, and returns ``cudaGetLastError()`` after the launch. A backward
-kernel also exports ``<function>_blocks(rows)``: the grid it launches, which
-sizes the per-block partial-sum workspaces its wrapper allocates.
+Every exported kernel function takes its tensors' device pointers, then its
+integer arguments (each a ``long long``: the row count of the InT cell
+kernels; N, H, W, C, patch and dilation of the correlation kernels) and the
+CUDA stream, launches on that stream without synchronising or allocating,
+and returns ``cudaGetLastError()`` after the launch (or the error that made
+it refuse the arguments). An InT backward kernel also exports
+``<function>_blocks(rows)``: the grid it launches, which sizes the per-block
+partial-sum workspaces its wrapper allocates.
 """
 
 from __future__ import annotations
@@ -30,12 +33,14 @@ BUILD = Path(__file__).resolve().parent.parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# source name -> {exported function: number of tensor pointers it takes}
+# source name -> {exported function: (tensor pointers, integer arguments)}
 SIGNATURES = {
-    "int_cell": {"k1_attention_fwd": 6, "k2_inhibition_fwd": 13,
-                 "k3_excitation_fwd": 16},
-    "int_cell_bwd": {"k1_attention_bwd": 10, "k2_inhibition_bwd": 19,
-                     "k3_excitation_bwd": 24},
+    "int_cell": {"k1_attention_fwd": (6, 1), "k2_inhibition_fwd": (13, 1),
+                 "k3_excitation_fwd": (16, 1)},
+    "int_cell_bwd": {"k1_attention_bwd": (10, 1), "k2_inhibition_bwd": (19, 1),
+                     "k3_excitation_bwd": (24, 1)},
+    "correlation": {"correlation_fwd": (3, 6), "correlation_bwd_f1": (3, 6),
+                    "correlation_bwd_f2": (3, 6)},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -97,12 +102,12 @@ def _library(name: str) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
-        for fn, n_ptrs in SIGNATURES[name].items():
+        for fn, (n_ptrs, n_ints) in SIGNATURES[name].items():
             f = getattr(lib, fn)
-            f.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_longlong,
-                                                       ctypes.c_void_p]
+            f.argtypes = ([ctypes.c_void_p] * n_ptrs
+                          + [ctypes.c_longlong] * n_ints + [ctypes.c_void_p])
             f.restype = ctypes.c_int
-            if fn.endswith("_bwd"):
+            if hasattr(lib, fn + "_blocks"):
                 q = getattr(lib, fn + "_blocks")
                 q.argtypes, q.restype = [ctypes.c_longlong], ctypes.c_int
         lib.cuda_error_string.argtypes = [ctypes.c_int]
@@ -120,15 +125,18 @@ def blocks(name: str, fn: str, rows: int) -> int:
     return n
 
 
-def launch(name: str, fn: str, tensors, rows: int, stream: int) -> None:
-    """Call ``fn`` of ``csrc/<name>.cu``; raise if the launch failed. A
-    ``None`` among ``tensors`` is passed as a null pointer."""
+def launch(name: str, fn: str, tensors, ints, stream: int) -> None:
+    """Call ``fn`` of ``csrc/<name>.cu`` with its tensors, its integer
+    arguments (one int or a sequence of them) and the stream; raise if the
+    launch failed. A ``None`` among ``tensors`` is passed as a null pointer."""
     lib = _library(name)
-    if len(tensors) != SIGNATURES[name][fn]:
-        raise ValueError(f"{fn} takes {SIGNATURES[name][fn]} tensors, "
-                         f"got {len(tensors)}")
+    ints = (ints,) if isinstance(ints, int) else tuple(ints)
+    n_ptrs, n_ints = SIGNATURES[name][fn]
+    if len(tensors) != n_ptrs or len(ints) != n_ints:
+        raise ValueError(f"{fn} takes {n_ptrs} tensors and {n_ints} integers, "
+                         f"got {len(tensors)} and {len(ints)}")
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
-    err = getattr(lib, fn)(*ptrs, rows, stream)
+    err = getattr(lib, fn)(*ptrs, *ints, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA error {err} "
                            f"({lib.cuda_error_string(err).decode()})")

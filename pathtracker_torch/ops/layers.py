@@ -31,11 +31,12 @@ def _mixed_matmul(x, kernel, dtype):
     return (x.to(dtype).float() @ kernel.to(dtype).float()).to(dtype)
 
 
-def _mixed_conv(x_nchw, weight, dtype):
+def _mixed_conv(x_nchw, weight, dtype, groups=1):
     if x_nchw.is_cuda:
-        return F.conv2d(x_nchw.to(dtype), weight.to(dtype), padding="same")
+        return F.conv2d(x_nchw.to(dtype), weight.to(dtype), padding="same",
+                        groups=groups)
     return F.conv2d(x_nchw.to(dtype).float(), weight.to(dtype).float(),
-                    padding="same").to(dtype)
+                    padding="same", groups=groups).to(dtype)
 
 
 def dense(x, kernel, bias=None, mxu_dtype=None):
@@ -51,10 +52,11 @@ def dense(x, kernel, bias=None, mxu_dtype=None):
     return y
 
 
-def conv2d(x, weight, bias=None, mxu_dtype=None, keep_mxu_dtype: bool = False):
-    """'SAME' stride-1 conv of an NHWC ``x`` with an OIHW ``weight`` ->
-    NHWC. The NHWC tensor enters the conv as a channels-last NCHW view, so
-    no copy is made on either side.
+def conv2d(x, weight, bias=None, mxu_dtype=None, keep_mxu_dtype: bool = False,
+           groups: int = 1):
+    """'SAME' stride-1 conv of an NHWC ``x`` with an OIHW ``weight``
+    ([O, I/groups, k, k]) -> NHWC. The NHWC tensor enters the conv as a
+    channels-last NCHW view, so no copy is made on either side.
 
     A bf16 input, or ``mxu_dtype`` with an f32 input, takes the mixed path
     and yields bf16; ``keep_mxu_dtype=False`` upcasts an f32 input's result
@@ -62,11 +64,11 @@ def conv2d(x, weight, bias=None, mxu_dtype=None, keep_mxu_dtype: bool = False):
     x_nchw = x.permute(0, 3, 1, 2)
     mixed = mxu_dtype is not None and x.dtype == torch.float32
     if mixed or x.dtype == torch.bfloat16:
-        y = _mixed_conv(x_nchw, weight, mxu_dtype or x.dtype)
+        y = _mixed_conv(x_nchw, weight, mxu_dtype or x.dtype, groups)
         if mixed and not keep_mxu_dtype:
             y = y.float()
     else:
-        y = F.conv2d(x_nchw, weight.to(x.dtype), padding="same")
+        y = F.conv2d(x_nchw, weight.to(x.dtype), padding="same", groups=groups)
     y = y.permute(0, 2, 3, 1)
     if bias is not None:
         y = y + bias.to(y.dtype)
@@ -83,6 +85,14 @@ def batch_norm(x, scale, bias, eps: float = 1e-3):
     inv = torch.rsqrt(mean2 - mean.square() + eps)
     return ((x - mean.to(x.dtype)) * (inv.to(x.dtype) * scale.to(x.dtype))
             + bias.to(x.dtype))
+
+
+def max_pool2d(x, kernel: int = 3):
+    """Stride-1 'SAME' max pool of an NHWC ``x`` (odd ``kernel``), the border
+    padded with -inf: the TSM-ResNet stem's pool, which keeps the resolution
+    (pathtracker_tpu/models/tsm_resnet.py:188-190)."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), kernel, stride=1, padding=kernel // 2)
+    return y.permute(0, 2, 3, 1)
 
 
 def global_avg_pool(x):

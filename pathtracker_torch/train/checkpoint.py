@@ -1,7 +1,9 @@
 """Checkpoint reading (pathtracker_tpu/train/checkpoint.py:50-99).
 
-The JAX package writes ``{"state_dict": flat params, "epoch", "acc",
-"extra"}`` with flax's msgpack serialization. Neither flax nor msgpack is a
+The JAX package writes ``{"state_dict": params, "epoch", "acc", "extra"}``
+with flax's msgpack serialization; the params are a flat {name: array} dict
+for the InT family and a nested flax tree for ``rntsm`` (``stem/kernel``,
+``layer1_0/conv1/bn_scale``, ..., ``fc1_kernel``). Neither flax nor msgpack is a
 dependency of the port, so this module carries a small msgpack reader for
 exactly the types flax writes: maps, arrays, str, bin, ints, floats, nil,
 bool, and ext type 1 — an ndarray, itself a msgpack ``(shape, dtype name,
@@ -132,7 +134,8 @@ def load_checkpoint(path: str) -> dict:
 
 
 def load_params(path: str) -> dict:
-    """The flat params dict (JAX names and layouts) of a checkpoint; turn it
-    into the port's state_dict with train.torch_import."""
+    """The params of a checkpoint in the JAX names and layouts: a flat dict
+    (InT family) or a nested one (``rntsm``). Turn them into the port's
+    state_dict with ``train.torch_import.state_dict_from_jax``."""
     state = load_checkpoint(path)
     return state["state_dict"] if "state_dict" in state else state

@@ -1,7 +1,8 @@
 """pathtracker_torch on the card: the CUDA kernels, forward and backward,
-against their plain versions at the main path's width, and the fused InT
-cell against the eager cell, outputs and gradients. Every test here is marked ``gpu`` and skips where no CUDA card
-is present. This file imports neither JAX nor pathtracker_tpu, so it also
+against their plain versions at the main path's width, the fused InT
+cell against the eager cell, outputs and gradients, and the correlation
+kernels and a small TSMResNet through them against the plain correlation.
+Every test here is marked ``gpu`` and skips where no CUDA card is present. This file imports neither JAX nor pathtracker_tpu, so it also
 runs where they are not installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
@@ -13,6 +14,8 @@ import pytest
 import torch
 
 from pathtracker_torch.models.int_circuit import InT
+from pathtracker_torch.models.tsm_resnet import TSMResNet
+from pathtracker_torch.ops import correlation as corr
 from pathtracker_torch.ops import int_fused as F
 
 C = 32
@@ -231,3 +234,91 @@ def test_cuda_f32_path_matches_cpu(cuda):
         got = card(x.to(cuda), testmode=True)
     for a, b in zip(got, want):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+# (N, H, W, C, patch, dilation): the serving path's shape at a small N, the
+# JAX tests' cases, odd sizes with ragged tiles and a channel count that is
+# no multiple of 4 or 16, two displacement groups per axis, a wide dilation.
+CORRELATION_CASES = [(3, 32, 32, 64, 15, 1), (2, 8, 8, 4, 5, 1), (1, 12, 12, 4, 5, 2),
+                     (2, 7, 9, 3, 3, 1), (1, 37, 41, 21, 7, 1), (1, 20, 35, 24, 17, 1),
+                     (1, 9, 40, 8, 9, 3), (1, 5, 6, 70, 1, 1)]
+
+
+def _correlation_inputs(n, h, w, c, patch, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f1 = corr.l2_normalize(torch.randn((n, h, w, c), generator=gen, device=dev))
+    f2 = corr.l2_normalize(torch.randn((n, h, w, c), generator=gen, device=dev))
+    g = torch.randn((n, h, w, patch * patch), generator=gen, device=dev)
+    return f1, f2, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CORRELATION_CASES, ids=str)
+def test_cuda_correlation_kernels_match_plain(cuda, case):
+    """Forward: f32 sums of C products of L2-normalised features (|sum| <= 1)
+    in another order, atol 1e-5. Backward: sums of patch^2 terms g*f with
+    g ~ N(0,1) and |f| <= 1, atol 1e-4. Each wrapper launches once; two
+    launches of a backward kernel give the same bits (no float atomics)."""
+    n, h, w, c, patch, dil = case
+    f1, f2, g = _correlation_inputs(n, h, w, c, patch, cuda)
+    before = [k.launches for k in corr.KERNELS]
+    out = corr.correlation(f1, f2, patch, dil)
+    df1 = corr.correlation_bwd_f1(g, f2, patch, dil)
+    df2 = corr.correlation_bwd_f2(g, f1, patch, dil)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(corr.KERNELS, before)] == [1, 1, 1]
+    torch.testing.assert_close(out, corr.correlation_plain(f1, f2, patch, dil),
+                               rtol=0, atol=1e-5)
+    torch.testing.assert_close(df1, corr.correlation_bwd_f1_plain(g, f2, patch, dil),
+                               rtol=0, atol=1e-4)
+    torch.testing.assert_close(df2, corr.correlation_bwd_f2_plain(g, f1, patch, dil),
+                               rtol=0, atol=1e-4)
+    assert torch.equal(df1, corr.correlation_bwd_f1(g, f2, patch, dil))
+    assert torch.equal(df2, corr.correlation_bwd_f2(g, f1, patch, dil))
+
+
+@pytest.mark.gpu
+def test_cuda_correlation_autograd_runs_the_backward_kernels(cuda):
+    f1, f2, g = _correlation_inputs(2, 16, 16, 64, 15, cuda, seed=1)
+    f1.requires_grad_(), f2.requires_grad_()
+    before = [k.launches for k in corr.KERNELS]
+    got = torch.autograd.grad(corr.correlation(f1, f2, 15), (f1, f2), g)
+    assert [k.launches - b for k, b in zip(corr.KERNELS, before)] == [1, 1, 1]
+    want = torch.autograd.grad(corr.correlation_plain(f1, f2, 15), (f1, f2), g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_correlation_refuses_a_window_no_block_can_hold(cuda):
+    """patch 15 at dilation 40: the shared-memory tile exceeds 227 KB even at
+    one row; the launch is refused and the wrapper raises."""
+    f1, f2, _ = _correlation_inputs(1, 8, 8, 4, 15, cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        corr.correlation(f1, f2, 15, 40)
+
+
+@pytest.mark.gpu
+def test_cuda_tsm_resnet_fused_matches_plain_correlation(cuda):
+    """A small TSMResNet through the correlation kernels against the same
+    weights through the plain correlation: logits atol 1e-4 (the volumes
+    differ by f32 rounding; an argmax that flips between near-equal maxima
+    moves one pixel's flow), and one launch of each kernel per
+    forward/backward."""
+    x = torch.randn((2, 3, 4, 16, 16), generator=torch.Generator().manual_seed(0)).to(cuda)
+    fused = TSMResNet(layers=(1, 1, 1, 1), device=cuda)
+    plain = TSMResNet(layers=(1, 1, 1, 1), fused=False, device=cuda)
+    plain.load_state_dict(fused.state_dict())
+    before = [k.launches for k in corr.KERNELS]
+    with torch.no_grad():
+        got = fused(x)
+        want = plain(x)
+    assert [k.launches - b for k, b in zip(corr.KERNELS, before)] == [1, 0, 0]
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    fused(x).square().sum().backward()
+    assert [k.launches - b for k, b in zip(corr.KERNELS, before)] == [2, 1, 1]
+    plain(x).square().sum().backward()
+    assert [k.launches - b for k, b in zip(corr.KERNELS, before)] == [2, 1, 1]
+    for (name, p), q in zip(fused.named_parameters(), plain.parameters()):
+        scale = max(q.grad.abs().max().item(), 1e-3)
+        assert ((p.grad - q.grad).abs().max() / scale).item() <= 0.1, name

@@ -16,7 +16,10 @@ CUDA stream, launches on that stream without synchronising or allocating,
 and returns ``cudaGetLastError()`` after the launch (or the error that made
 it refuse the arguments). An InT backward kernel also exports
 ``<function>_blocks(rows)``: the grid it launches, which sizes the per-block
-partial-sum workspaces its wrapper allocates.
+partial-sum workspace its wrapper allocates. ``k1_attention_bwd`` leaves the
+sum over that workspace to its wrapper; ``k2_inhibition_bwd`` and
+``k3_excitation_bwd`` finish it themselves (a second small kernel launched by
+the same C function) and return the final gradients.
 """
 
 from __future__ import annotations
@@ -37,8 +40,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SIGNATURES = {
     "int_cell": {"k1_attention_fwd": (6, 1), "k2_inhibition_fwd": (13, 1),
                  "k3_excitation_fwd": (16, 1)},
-    "int_cell_bwd": {"k1_attention_bwd": (10, 1), "k2_inhibition_bwd": (19, 1),
-                     "k3_excitation_bwd": (24, 1)},
+    "int_cell_bwd": {"k1_attention_bwd": (10, 1), "k2_inhibition_bwd": (20, 1),
+                     "k3_excitation_bwd": (25, 1)},
     "correlation": {"correlation_fwd": (3, 6), "correlation_bwd_f1": (3, 6),
                     "correlation_bwd_f2": (3, 6)},
 }
@@ -118,7 +121,7 @@ def _library(name: str) -> ctypes.CDLL:
 
 def blocks(name: str, fn: str, rows: int) -> int:
     """The grid ``fn`` launches for ``rows`` rows: the leading size of its
-    per-block partial workspaces."""
+    per-block partial workspace."""
     n = getattr(_library(name), fn + "_blocks")(rows)
     if n <= 0:
         raise RuntimeError(f"{fn}_blocks({rows}) returned {n}")

@@ -30,7 +30,9 @@ csrc/int_cell_bwd.cu backward) for CUDA tensors, raising if the launch
 fails. ``<wrapper>.launches`` counts kernel launches only. The backward
 versions are hand-derived like the Pallas ones, not autograd of the forward:
 they recompute the phase from its inputs and round where the Pallas bodies
-round. ``k1_attention``, ``k2_inhibition`` and ``k3_excitation`` are
+round. A K2 or K3 backward launch returns finished gradients (its sums over
+the rows are completed on the card by the same call); K1's wrapper sums its
+kernel's per-block partials. ``k1_attention``, ``k2_inhibition`` and ``k3_excitation`` are
 differentiable: given an input that requires grad they go through a
 ``torch.autograd.Function`` whose backward is the backward wrapper.
 """
@@ -273,7 +275,8 @@ def _k3_launch(args):
 
 
 def _partials(fn, ref, *leading):
-    """f32 workspaces [blocks, n, C] for ``fn``'s per-block partial sums."""
+    """f32 workspaces [blocks, n, C] for ``fn``'s per-block partial sums:
+    K1's wrapper sums them over the blocks, K2's and K3's kernels do."""
     blocks = _native.blocks("int_cell_bwd", fn, ref.shape[0])
     return [torch.empty((blocks, n, C), dtype=_F32, device=ref.device)
             for n in leading]
@@ -310,14 +313,15 @@ def k2_inhibition_bwd(conv_i, mean0, rstd0, scale0, bias0, inp, gi_x, inh,
         return k2_inhibition_bwd_plain(*args)
     dconv, dinp, dgix = (torch.empty_like(conv_i) for _ in range(3))
     dinh = torch.empty_like(inh)
-    ws_w, ws_red = _partials("k2_inhibition_bwd", inh, C, 7)
-    _launch("int_cell_bwd", "k2_inhibition_bwd",
-            args + (dconv, dinp, dgix, dinh, ws_w, ws_red))
-    k2_inhibition_bwd.launches += 1
+    di_u = torch.empty_like(i_u)
     # rows of red: [di_u_b, dalpha, dmu, dmean, drstd, dscale, dbias]
-    red = ws_red.sum(dim=0)
+    red = torch.empty((7, C), dtype=_F32, device=inh.device)
+    (ws,) = _partials("k2_inhibition_bwd", inh, C + 7)
+    _launch("int_cell_bwd", "k2_inhibition_bwd",
+            args + (dconv, dinp, dgix, dinh, di_u, red, ws))
+    k2_inhibition_bwd.launches += 1
     return (dconv, red[3], red[4], red[5], red[6], dinp, dgix, dinh,
-            ws_w.sum(dim=0).to(_BF16), red[0], red[1], red[2])
+            di_u, red[0], red[1], red[2])
 
 
 def k3_excitation_bwd(conv_e, mean1, rstd1, scale1, bias1, new_inh, inh, gated,
@@ -330,15 +334,15 @@ def k3_excitation_bwd(conv_e, mean1, rstd1, scale1, bias1, new_inh, inh, gated,
         return k3_excitation_bwd_plain(*args)
     dconv, dgated = torch.empty_like(conv_e), torch.empty_like(gated)
     dninh, dinh, dexc = (torch.empty_like(exc) for _ in range(3))
-    ws_w, ws_u, ws_red = _partials("k3_excitation_bwd", exc, C, C, 7)
-    _launch("int_cell_bwd", "k3_excitation_bwd",
-            args + (dconv, dninh, dinh, dgated, dexc, ws_w, ws_u, ws_red))
-    k3_excitation_bwd.launches += 1
+    de_w, de_u = torch.empty_like(e_w), torch.empty_like(e_u)
     # rows of red: [de_w_b = de_u_b, dkappa, dgamma, dmean, drstd, dscale, dbias]
-    red = ws_red.sum(dim=0)
+    red = torch.empty((7, C), dtype=_F32, device=exc.device)
+    (ws,) = _partials("k3_excitation_bwd", exc, 2 * C + 7)
+    _launch("int_cell_bwd", "k3_excitation_bwd",
+            args + (dconv, dninh, dinh, dgated, dexc, de_w, de_u, red, ws))
+    k3_excitation_bwd.launches += 1
     return (dconv, red[3], red[4], red[5], red[6], dninh, dinh, dgated, dexc,
-            ws_w.sum(dim=0).to(_BF16), red[0], ws_u.sum(dim=0).to(_BF16),
-            red[0], red[1], red[2])
+            de_w, red[0], de_u, red[0], red[1], red[2])
 
 
 # ------------------- differentiable phases (autograd glue) ------------------

@@ -112,8 +112,13 @@ def _bwd_cases(d, ct):
     ]
 
 
+# Row counts around the edges of the K2/K3 backward kernels' tiling (16 rows
+# a warp, 128 a block) besides the main path's 131,072.
+RAGGED_ROWS = [1, 15, 17, 63, 65, 1000, 131072 + 5]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows", [131072, 1000])
+@pytest.mark.parametrize("rows", [131072] + RAGGED_ROWS)
 def test_cuda_backward_kernels_match_plain(cuda, rows):
     """Tolerances, cotangents being O(1), each relative to the output's
     largest entry (at least 1). Row outputs: a transposed product takes its
@@ -166,6 +171,45 @@ def test_cuda_backward_kernels_are_deterministic(cuda):
         torch.cuda.synchronize()
         for i, (a, b) in enumerate(zip(first, second)):
             assert torch.equal(a, b), (name, i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", RAGGED_ROWS)
+def test_cuda_backward_kernels_are_deterministic_at_ragged_sizes(cuda, rows):
+    """As above where the last tile is partial, or most warps have none."""
+    d, ct = _inputs(rows, cuda), _cotangents(rows, cuda)
+    for name, wrapper, _, args in _bwd_cases(d, ct)[2:]:
+        first = wrapper(*args)
+        second = wrapper(*args)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(first, second)):
+            assert torch.equal(a, b), (name, i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [131072, 1000])
+def test_cuda_backward_kernels_replay_in_a_cuda_graph(cuda, rows):
+    """K2 and K3 backward, each launched twice in a row inside a captured
+    CUDA graph: every replay gives the eager launch's bits, the reductions
+    that the launch finishes on the card included."""
+    d, ct = _inputs(rows, cuda), _cotangents(rows, cuda)
+    for name, wrapper, _, args in _bwd_cases(d, ct)[2:]:
+        eager = [t.clone() for t in wrapper(*args)]  # also loads the kernel
+        torch.cuda.synchronize()
+        before = wrapper.launches
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            first = wrapper(*args)
+            second = wrapper(*args)
+        assert wrapper.launches == before + 2, name
+        for _ in range(3):
+            for t in (*first, *second):
+                t.fill_(float("nan"))
+            graph.replay()
+            torch.cuda.synchronize()
+            for i, want in enumerate(eager):
+                assert torch.equal(first[i], want), (name, "first", i)
+                assert torch.equal(second[i], want), (name, "second", i)
 
 
 @pytest.mark.gpu

@@ -11,6 +11,8 @@ The CUDA kernels themselves are held against the plain versions on the card
 by tests/test_torch_cuda.py.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -167,6 +169,39 @@ def test_wrapper_checks_and_takes_plain_on_cpu(wrapper, plain, names):
         assert a.requires_grad and torch.equal(a, b)
     (dstate,) = torch.autograd.grad(out[-1].sum(), [grad[state]])
     assert dstate.shape == args[state].shape and torch.isfinite(dstate).all()
+
+
+def _exported_functions(source):
+    """{name: (pointer parameters, ``long long`` parameters)} of the ``int``
+    functions that ``csrc/<source>.cu`` defines in its ``extern "C"`` block."""
+    text = (_native.CSRC / f"{source}.cu").read_text()
+    block = text[text.index('extern "C" {'):text.rindex('}  // extern "C"')]
+    found = {}
+    for name, params in re.findall(r"^int (\w+)\(([^)]*)\)\s*\{", block, flags=re.M):
+        params = [" ".join(p.split()) for p in params.split(",")]
+        pointers = [p for p in params if re.fullmatch(r"(const )?void\* \w+", p)]
+        integers = [p for p in params if re.fullmatch(r"long long \w+", p)]
+        assert len(pointers) + len(integers) == len(params), (name, params)
+        found[name] = (pointers, integers)
+    return found
+
+
+@pytest.mark.parametrize("source", sorted(_native.SIGNATURES))
+def test_signatures_match_the_exported_c_functions(source):
+    """``ctypes`` passes whatever it is given: a miscounted pointer would
+    reach the kernel as garbage without an error. Every kernel function takes
+    its tensor pointers, its integers, then the stream; a ``<fn>_blocks``
+    query takes the row count alone."""
+    exported = _exported_functions(source)
+    queries = {n for n in exported if n.endswith("_blocks")}
+    assert set(exported) - queries == set(_native.SIGNATURES[source])
+    for fn, (n_ptrs, n_ints) in _native.SIGNATURES[source].items():
+        pointers, integers = exported[fn]
+        assert pointers[-1] == "void* stream", fn
+        assert (len(pointers) - 1, len(integers)) == (n_ptrs, n_ints), fn
+    for query in queries:
+        assert query[:-len("_blocks")] in _native.SIGNATURES[source]
+        assert exported[query] == ([], ["long long rows"])
 
 
 def test_supported_and_build_need_the_toolkit(monkeypatch):

@@ -29,9 +29,9 @@ Phases, printed in order; any failure exits non-zero before the last line:
   5. K1, K2 and K3 backward at the same width on seeded inputs and
      cotangents, K1 with and without a cotangent for the attention map:
      the same comparisons, times and bounds as phase 3, and bit-identical
-     outputs on two launches; for K2 and K3 backward, whose launch finishes
-     its sums over the rows with a second kernel, the device time of each
-     CUDA kernel of a call by name (torch.profiler), so that the main kernel
+     outputs on two launches; each backward launch finishes its sums over
+     the rows with a second kernel, so the device time of each CUDA kernel
+     of a call is printed by name (torch.profiler), and the main kernel
      alone is told from the wrapper-level time;
   6. gradients of sum(logit^2) for every parameter, fused cell against eager
      mixed cell, normalised by each gradient's largest entry: held at batch
@@ -143,7 +143,8 @@ LOSS_ATOL = 0.01
 MIN_ACCURACY = 0.6
 # The backward wrappers whose main kernel is also timed alone (phase 5), and
 # the calls profiled for that.
-ALONE = {"k2_inhibition_bwd": "k2_bwd_kernel", "k3_excitation_bwd": "k3_bwd_kernel"}
+ALONE = {"k1_attention_bwd": "k1_bwd_kernel", "k2_inhibition_bwd": "k2_bwd_kernel",
+         "k3_excitation_bwd": "k3_bwd_kernel"}
 ALONE_CALLS = 10
 # The __global__ functions of csrc/int_cell.cu and csrc/int_cell_bwd.cu.
 INT_CELL_KERNELS = ("k1_kernel", "k2_kernel", "k3_kernel", "k1_bwd_kernel",

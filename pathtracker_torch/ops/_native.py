@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 alone (no PyTorch headers, which cost minutes a build) into
-``build/lib<name>_<hash>.so``; the hash covers the source and the flags, so
-an edited source builds anew. ``ptxas -v``'s account of each kernel
-(registers, shared memory, spills) is kept beside it as ``.log``. The
+``build/lib<name>_<hash>.so``; the hash covers the source, the ``csrc/``
+headers it includes (``ring.cuh``: the ring kernels' shared pieces) and the
+flags, so an edited source or header builds anew. ``ptxas -v``'s account of
+each kernel (registers, shared memory, spills) is kept beside it as
+``.log``. The
 library is loaded with ``ctypes``. Nothing here runs at import: the first
 launch builds and loads, and ``build()`` does it ahead of time, one ``nvcc``
 per source, all at once.
@@ -16,10 +18,9 @@ CUDA stream, launches on that stream without synchronising or allocating,
 and returns ``cudaGetLastError()`` after the launch (or the error that made
 it refuse the arguments). An InT backward kernel also exports
 ``<function>_blocks(rows)``: the grid it launches, which sizes the per-block
-partial-sum workspace its wrapper allocates. ``k1_attention_bwd`` leaves the
-sum over that workspace to its wrapper; ``k2_inhibition_bwd`` and
-``k3_excitation_bwd`` finish it themselves (a second small kernel launched by
-the same C function) and return the final gradients.
+partial-sum workspace its wrapper allocates; the C function finishes the sum
+over that workspace itself (a second small kernel on the same stream) and
+returns the final gradients.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -40,7 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SIGNATURES = {
     "int_cell": {"k1_attention_fwd": (6, 1), "k2_inhibition_fwd": (13, 1),
                  "k3_excitation_fwd": (16, 1)},
-    "int_cell_bwd": {"k1_attention_bwd": (10, 1), "k2_inhibition_bwd": (20, 1),
+    "int_cell_bwd": {"k1_attention_bwd": (11, 1), "k2_inhibition_bwd": (20, 1),
                      "k3_excitation_bwd": (25, 1)},
     "correlation": {"correlation_fwd": (3, 6), "correlation_bwd_f1": (3, 6),
                     "correlation_bwd_f2": (3, 6)},
@@ -61,10 +63,18 @@ def _nvcc() -> str:
                        "kernels are built from csrc/ at first use")
 
 
+def included_headers(name: str) -> list[str]:
+    """The ``csrc/`` headers ``csrc/<name>.cu`` includes (``#include "x.cuh"``)."""
+    source = (CSRC / f"{name}.cu").read_text()
+    return sorted(set(re.findall(r'^#include "(\w+\.cuh)"', source, flags=re.M)))
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD / f"lib{name}_{digest}.so"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in included_headers(name):
+        digest.update(header.encode() + b"\0" + (CSRC / header).read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build_log(name: str) -> str:

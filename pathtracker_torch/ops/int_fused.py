@@ -30,11 +30,12 @@ csrc/int_cell_bwd.cu backward) for CUDA tensors, raising if the launch
 fails. ``<wrapper>.launches`` counts kernel launches only. The backward
 versions are hand-derived like the Pallas ones, not autograd of the forward:
 they recompute the phase from its inputs and round where the Pallas bodies
-round. A K2 or K3 backward launch returns finished gradients (its sums over
-the rows are completed on the card by the same call); K1's wrapper sums its
-kernel's per-block partials. ``k1_attention``, ``k2_inhibition`` and ``k3_excitation`` are
-differentiable: given an input that requires grad they go through a
-``torch.autograd.Function`` whose backward is the backward wrapper.
+round. A backward launch returns finished gradients: its sums over the rows
+are completed on the card by the same call, so a backward wrapper does no
+arithmetic of its own. ``k1_attention``, ``k2_inhibition`` and
+``k3_excitation`` are differentiable: given an input that requires grad they
+go through a ``torch.autograd.Function`` whose backward is the backward
+wrapper.
 """
 
 from __future__ import annotations
@@ -274,12 +275,11 @@ def _k3_launch(args):
     return out
 
 
-def _partials(fn, ref, *leading):
-    """f32 workspaces [blocks, n, C] for ``fn``'s per-block partial sums:
-    K1's wrapper sums them over the blocks, K2's and K3's kernels do."""
+def _partials(fn, ref, n):
+    """The f32 workspace [blocks, n, C] for ``fn``'s per-block partial sums,
+    which the launch itself sums over the blocks."""
     blocks = _native.blocks("int_cell_bwd", fn, ref.shape[0])
-    return [torch.empty((blocks, n, C), dtype=_F32, device=ref.device)
-            for n in leading]
+    return torch.empty((blocks, n, C), dtype=_F32, device=ref.device)
 
 
 # ---------------------------- backward wrappers -----------------------------
@@ -296,11 +296,12 @@ def k1_attention_bwd(exc, att_x, a_u, a_u_b, dgated, datt=None):
         return k1_attention_bwd_plain(exc, att_x, a_u, a_u_b, dgated, datt)
     dexc = torch.empty_like(exc)
     dattx = torch.empty_like(att_x)
-    ws_w, ws_b = _partials("k1_attention_bwd", exc, C, 1)
+    da_u, da_u_b = torch.empty_like(a_u), torch.empty_like(a_u_b)
+    ws = _partials("k1_attention_bwd", exc, C + 1)
     _launch("int_cell_bwd", "k1_attention_bwd",
-            (exc, att_x, a_u, a_u_b, dgated, datt, dexc, dattx, ws_w, ws_b))
+            (exc, att_x, a_u, a_u_b, dgated, datt, dexc, dattx, da_u, da_u_b, ws))
     k1_attention_bwd.launches += 1
-    return dexc, dattx, ws_w.sum(dim=0).to(_BF16), ws_b.sum(dim=0)[0]
+    return dexc, dattx, da_u, da_u_b
 
 
 def k2_inhibition_bwd(conv_i, mean0, rstd0, scale0, bias0, inp, gi_x, inh,
@@ -316,7 +317,7 @@ def k2_inhibition_bwd(conv_i, mean0, rstd0, scale0, bias0, inp, gi_x, inh,
     di_u = torch.empty_like(i_u)
     # rows of red: [di_u_b, dalpha, dmu, dmean, drstd, dscale, dbias]
     red = torch.empty((7, C), dtype=_F32, device=inh.device)
-    (ws,) = _partials("k2_inhibition_bwd", inh, C + 7)
+    ws = _partials("k2_inhibition_bwd", inh, C + 7)
     _launch("int_cell_bwd", "k2_inhibition_bwd",
             args + (dconv, dinp, dgix, dinh, di_u, red, ws))
     k2_inhibition_bwd.launches += 1
@@ -337,7 +338,7 @@ def k3_excitation_bwd(conv_e, mean1, rstd1, scale1, bias1, new_inh, inh, gated,
     de_w, de_u = torch.empty_like(e_w), torch.empty_like(e_u)
     # rows of red: [de_w_b = de_u_b, dkappa, dgamma, dmean, drstd, dscale, dbias]
     red = torch.empty((7, C), dtype=_F32, device=exc.device)
-    (ws,) = _partials("k3_excitation_bwd", exc, 2 * C + 7)
+    ws = _partials("k3_excitation_bwd", exc, 2 * C + 7)
     _launch("int_cell_bwd", "k3_excitation_bwd",
             args + (dconv, dninh, dinh, dgated, dexc, de_w, de_u, red, ws))
     k3_excitation_bwd.launches += 1

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The InT backward kernels and the train step of two checkouts of this
+"""The InT cell kernels and the train step of two checkouts of this
 repository, in turns on one CUDA card.
 
     python3 scripts/torch_bwd_compare.py PARENT . . PARENT
@@ -8,12 +8,13 @@ Each argument is the root of a checkout (``.``: the one this script is in;
 another one can be unpacked with ``git archive <commit> | tar -x -C DIR``).
 For each, in the order given and each in a process of its own, the script
 builds that checkout's kernels and runs two phases of this checkout's
-``chip_smoke.py`` on that checkout's ``pathtracker_torch``: the backward
-kernels at 131,072 x 32 against their plain versions (device time per call,
-bound, each CUDA kernel of a call by name) and the chainE train phase (10
-counted steps, p50 step latency of the fused and the eager path in turns,
-CUDA kernels per fused step). Two checkouts are compared only within one
-run of this script: the same card, the same power limit, taking turns.
+``chip_smoke.py`` on that checkout's ``pathtracker_torch``: the forward and
+the backward kernels at 131,072 x 32 against their plain versions (device
+time per call, bound, each CUDA kernel of a backward call by name) and the
+chainE train phase (10 counted steps, p50 step latency of the fused and the
+eager path in turns, CUDA kernels per fused step). Two checkouts are
+compared only within one run of this script: the same card, the same power
+limit, taking turns.
 """
 
 from __future__ import annotations
@@ -47,13 +48,14 @@ def run_one(root: str) -> int:
         return 2
     print(f"== {root}: {chip_smoke.card_line()}", flush=True)
     _native.build(["int_cell", "int_cell_bwd"])
-    for line in chip_smoke.resource_lines(_native.build_log("int_cell_bwd")):
-        print(f"build: csrc/int_cell_bwd.cu {line}", flush=True)
+    for name in ("int_cell", "int_cell_bwd"):
+        for line in chip_smoke.resource_lines(_native.build_log(name)):
+            print(f"build: csrc/{name}.cu {line}", flush=True)
     rendered = [render_batch(seed, chip_smoke.BATCH, chip_smoke.TIMESTEPS,
                              n_distractors=chip_smoke.DISTRACTORS,
                              dot_size=chip_smoke.DOT_SIZE)
                 for seed in range(chip_smoke.REQUESTS)]
-    rows = [dict(name=k.__name__) for k in F.FORWARD_KERNELS]
+    rows = chip_smoke.kernel_phase(F)
     rows += chip_smoke.backward_kernel_phase(F)
     chip_smoke.train_phase(serve, F, rows, rendered)
     return 0

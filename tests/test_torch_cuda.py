@@ -63,8 +63,13 @@ def _assert_bf16_ulp(a, b):
     assert bool(((a - b).abs() <= ulp).all()), (a - b).abs().max().item()
 
 
+# Row counts around the edges of the ring kernels' tiling (16 rows a warp,
+# 128 a block) besides the main path's 131,072.
+RAGGED_ROWS = [1, 15, 17, 63, 65, 1000, 131072 + 5]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows", [131072, 1000])
+@pytest.mark.parametrize("rows", [131072] + RAGGED_ROWS)
 def test_cuda_kernels_match_plain(cuda, rows):
     """Tolerances: f32 outputs atol 1e-5 (expf/log1pf and FMA contraction
     differ by ulps from PyTorch's kernels); bf16 outputs one bf16 ulp."""
@@ -112,9 +117,14 @@ def _bwd_cases(d, ct):
     ]
 
 
-# Row counts around the edges of the K2/K3 backward kernels' tiling (16 rows
-# a warp, 128 a block) besides the main path's 131,072.
-RAGGED_ROWS = [1, 15, 17, 63, 65, 1000, 131072 + 5]
+def _ring_cases(d, ct):
+    """(name, call returning a tuple, the wrapper that counts its launches,
+    arguments) for each ring kernel: K2 forward and the backward kernels."""
+    def k2(*args):
+        return (F.k2_inhibition(*args),)
+
+    return [("k2 forward", k2, F.k2_inhibition, [d[k] for k in K2_ARGS])] + [
+        (name, wrapper, wrapper, args) for name, wrapper, _, args in _bwd_cases(d, ct)]
 
 
 @pytest.mark.gpu
@@ -163,11 +173,11 @@ def test_cuda_backward_kernels_match_plain(cuda, rows):
 @pytest.mark.gpu
 def test_cuda_backward_kernels_are_deterministic(cuda):
     """No float atomics: two launches on the same inputs give the same bits,
-    the cross-row reductions included."""
+    the cross-row reductions included (and K2 forward's rows)."""
     d, ct = _inputs(131072, cuda), _cotangents(131072, cuda)
-    for name, wrapper, _, args in _bwd_cases(d, ct):
-        first = wrapper(*args)
-        second = wrapper(*args)
+    for name, call, _, args in _ring_cases(d, ct):
+        first = call(*args)
+        second = call(*args)
         torch.cuda.synchronize()
         for i, (a, b) in enumerate(zip(first, second)):
             assert torch.equal(a, b), (name, i)
@@ -178,30 +188,31 @@ def test_cuda_backward_kernels_are_deterministic(cuda):
 def test_cuda_backward_kernels_are_deterministic_at_ragged_sizes(cuda, rows):
     """As above where the last tile is partial, or most warps have none."""
     d, ct = _inputs(rows, cuda), _cotangents(rows, cuda)
-    for name, wrapper, _, args in _bwd_cases(d, ct)[2:]:
-        first = wrapper(*args)
-        second = wrapper(*args)
+    for name, call, _, args in _ring_cases(d, ct):
+        first = call(*args)
+        second = call(*args)
         torch.cuda.synchronize()
         for i, (a, b) in enumerate(zip(first, second)):
             assert torch.equal(a, b), (name, i)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows", [131072, 1000])
+@pytest.mark.parametrize("rows", [131072] + RAGGED_ROWS)
 def test_cuda_backward_kernels_replay_in_a_cuda_graph(cuda, rows):
-    """K2 and K3 backward, each launched twice in a row inside a captured
-    CUDA graph: every replay gives the eager launch's bits, the reductions
-    that the launch finishes on the card included."""
+    """Each ring kernel's wrapper (K2 forward, K1-K3 backward) launched
+    twice in a row inside a captured CUDA graph: every replay gives the eager
+    launch's bits, the reductions that the launch finishes on the card
+    included."""
     d, ct = _inputs(rows, cuda), _cotangents(rows, cuda)
-    for name, wrapper, _, args in _bwd_cases(d, ct)[2:]:
-        eager = [t.clone() for t in wrapper(*args)]  # also loads the kernel
+    for name, call, counted, args in _ring_cases(d, ct):
+        eager = [t.clone() for t in call(*args)]  # also loads the kernel
         torch.cuda.synchronize()
-        before = wrapper.launches
+        before = counted.launches
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            first = wrapper(*args)
-            second = wrapper(*args)
-        assert wrapper.launches == before + 2, name
+            first = call(*args)
+            second = call(*args)
+        assert counted.launches == before + 2, name
         for _ in range(3):
             for t in (*first, *second):
                 t.fill_(float("nan"))
@@ -210,6 +221,28 @@ def test_cuda_backward_kernels_replay_in_a_cuda_graph(cuda, rows):
             for i, want in enumerate(eager):
                 assert torch.equal(first[i], want), (name, "first", i)
                 assert torch.equal(second[i], want), (name, "second", i)
+
+
+@pytest.mark.gpu
+def test_cuda_backward_call_is_two_kernels(cuda):
+    """A backward wrapper's call is its phase's kernel and finish_kernel,
+    which sums the per-block partials: no PyTorch kernel of its own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    d, ct = _inputs(131072, cuda), _cotangents(131072, cuda)
+    mains = {"k1+datt": "k1_bwd_kernel", "k1": "k1_bwd_kernel", "k2": "k2_bwd_kernel",
+             "k3": "k3_bwd_kernel"}
+    for name, wrapper, _, args in _bwd_cases(d, ct):
+        wrapper(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wrapper(*args)
+            torch.cuda.synchronize()
+        seen = sorted(e.name for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        assert len(seen) == 2, (name, seen)
+        assert sum(mains[name] in k for k in seen) == 1, (name, seen)
+        assert sum("finish_kernel" in k for k in seen) == 1, (name, seen)
 
 
 @pytest.mark.gpu

@@ -199,9 +199,30 @@ def test_signatures_match_the_exported_c_functions(source):
         pointers, integers = exported[fn]
         assert pointers[-1] == "void* stream", fn
         assert (len(pointers) - 1, len(integers)) == (n_ptrs, n_ints), fn
+    # Every backward kernel sizes its partial-sum workspace by its query.
+    assert queries == {fn + "_blocks" for fn in _native.SIGNATURES[source]
+                       if fn.endswith("_bwd")}
     for query in queries:
-        assert query[:-len("_blocks")] in _native.SIGNATURES[source]
         assert exported[query] == ([], ["long long rows"])
+
+
+def test_library_hash_covers_the_included_headers(tmp_path, monkeypatch):
+    """An edited header builds anew every library whose source includes it,
+    and no other: the hash covers the source and its ``csrc/`` headers."""
+    for f in _native.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_native, "CSRC", tmp_path)
+    assert _native.included_headers("int_cell") == ["ring.cuh"]
+    assert _native.included_headers("int_cell_bwd") == ["ring.cuh"]
+    assert _native.included_headers("correlation") == []
+    before = {name: _native.library_path(name) for name in _native.SIGNATURES}
+    header = tmp_path / "ring.cuh"
+    header.write_text(header.read_text() + "\n// an edit\n")
+    after = {name: _native.library_path(name) for name in _native.SIGNATURES}
+    for name in _native.SIGNATURES:
+        changed = before[name] != after[name]
+        assert changed == ("ring.cuh" in _native.included_headers(name)), name
+        assert after[name].name.startswith(f"lib{name}_")
 
 
 def test_supported_and_build_need_the_toolkit(monkeypatch):

@@ -4,12 +4,29 @@ carried-across weights: a request through ``make_inference_fn``, one
 ``make_train_step`` update, an eval step, and the engine's dispatch.
 
 Tolerances: scores and logits atol 1e-4 (f32 convs and batch statistics
-summed in another order). The train step: packed stats 1e-3; Adam's first
-update is lr*g/(|g|+eps), so every entry moves by at most lr and an entry
-whose gradient the two packages agree on to a few percent (see
-tests/test_torch_tsm_resnet.py on ReLU masks at rounding distance from zero)
-lands within 0.1*lr; held: at most 2% of a parameter's entries past
-0.1*lr, none past 2*lr.
+summed in another order).
+
+The train step holds three things. (1) Packed stats within 1e-3. (2) The
+gradient of the step's loss (prep, forward, BCE) for the batch, ``jax.grad``
+against the port's ``.backward()``, each parameter's normalised by its
+largest entry, to tests/test_torch_tsm_resnet.py's whole-net tolerances:
+every entry within 0.1, but for at most FLIPS entries a parameter, and each
+mean gap within 2e-2. The exception is the ReLU masks at rounding distance
+from zero (that file's docstring): measured, the largest gap is 0.119, in
+one entry of ``layer3_0.conv1.kernel``, and it is the JAX package's f32
+that is off there (0.119 from the port's float64 gradient, while the port's
+f32 is 0.007 from it). (3) Adam's first update, lr*g/(|g|+eps) with bias
+correction: every entry moves by at most lr up to float rounding, the step
+moves the parameters, and, entry by entry, the two updates agree within
+0.1*lr wherever the gradient stands clear of rounding, |g| > CUT times the
+parameter's largest entry, but for at most FLIPS whole entries a
+parameter. Below the cut the update turns rounding noise into O(lr): the
+first step of the port and the JAX package parted by up to 2*lr in entries
+at 7e-9 to 3.2e-3 of their parameter's largest gradient (one in the
+16-entry ``flow_refinement.pw1.bn_scale``); above it, a flipped mask moves a
+channel's gradient by percents, and the updates parted in 10 entries
+(``layer4_0.conv1.kernel``) above 1e-2 of the largest, in one above 3e-2 and
+none above 0.1.
 """
 
 import types
@@ -21,15 +38,20 @@ import pytest
 import torch
 
 from pathtracker_torch import engine as tengine
+from pathtracker_torch.data.prepare import prepare_batch as tprepare
 from pathtracker_torch.eval import serve as tserve
 from pathtracker_torch.models import registry as tregistry
 from pathtracker_torch.models import tsm_resnet as TM
 from pathtracker_torch.train import steps as T
 from pathtracker_torch.train.torch_import import (export_tsm_resnet_state_dict,
                                                   to_jax_params)
+from pathtracker_torch.utils import metrics as tmetrics
+from pathtracker_tpu import engine as jengine
+from pathtracker_tpu.data.prepare import prepare_batch as jprepare
 from pathtracker_tpu.eval import serve as jserve
 from pathtracker_tpu.models import tsm_resnet as JM
 from pathtracker_tpu.train import steps as J
+from pathtracker_tpu.utils import metrics as jmetrics
 
 B, TS, HW, PATCH, LR = 2, 4, 12, 5, 1e-3
 
@@ -55,15 +77,49 @@ def test_request_through_make_inference_fn_matches_jax():
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
 
 
+FLIPS = 2  # whole entries a parameter that a flipped ReLU mask may move
+CUT = 5e-2  # of a parameter's largest gradient: the update is held above it
+
+
+def _leaf(tree, path):
+    for part in path:
+        tree = tree[part.key]
+    return tree
+
+
+def _jax_gradients(jm, params, clips, labels):
+    """``jax.grad`` of the loss J.make_train_step differentiates."""
+    def loss(p):
+        imgs, target = jprepare(jnp.asarray(clips), jnp.asarray(labels))
+        output, _ = jengine.model_step(jm, {"params": p}, imgs, "rntsm")
+        return jmetrics.bce_with_logits(output, target)
+
+    return jax.grad(loss)(params)
+
+
+def _port_gradients(tm, clips, labels):
+    """The same loss through the port, by ``.backward()``; the parameters'
+    ``.grad`` are cleared again."""
+    imgs, target = tprepare(torch.as_tensor(clips), torch.as_tensor(labels))
+    output, _ = tengine.model_step(tm, imgs, "rntsm")
+    tmetrics.bce_with_logits(output, target).backward()
+    grads = {name: p.grad for name, p in tm.named_parameters()}
+    tm.zero_grad(set_to_none=True)
+    return to_jax_params(grads)
+
+
 @pytest.mark.parametrize("remat", [False, True])
 def test_one_train_step_matches_jax(remat):
     jm, params, tm, clips, labels = _small(remat=remat)
+    tm.train()
+    jgrads = _jax_gradients(jm, params, clips[0], labels[0])
+    tgrads = _port_gradients(tm, clips[0], labels[0])
     jstep = J.make_train_step(jm, "rntsm", J.make_optimizer(LR))
     jopt_state = J.make_optimizer(LR).init(params)
     start = jax.tree.map(np.asarray, params)
     jparams, _, jstats = jstep(jax.tree.map(jnp.copy, params), jopt_state,
                                jnp.asarray(clips[0]), jnp.asarray(labels[0]))
-    tstats = T.make_train_step(tm.train(), "rntsm", T.make_optimizer(LR))(clips[0], labels[0])
+    tstats = T.make_train_step(tm, "rntsm", T.make_optimizer(LR))(clips[0], labels[0])
     assert tuple(tstats) == T.TRAIN_KEYS == tuple(jstats)
     for key in T.TRAIN_KEYS:
         np.testing.assert_allclose(tstats[key], jstats[key], rtol=1e-3, atol=1e-3, err_msg=key)
@@ -71,15 +127,22 @@ def test_one_train_step_matches_jax(remat):
     ours = to_jax_params(tm.state_dict())
     moved = 0.0
     for path, want in jax.tree_util.tree_leaves_with_path(jparams):
-        node, first = ours, start
-        for part in path:
-            node, first = node[part.key], first[part.key]
-        want = np.asarray(want)
-        diff = np.abs(node - want)
         name = jax.tree_util.keystr(path)
-        assert diff.max() <= 2.0 * LR, (name, diff.max())
-        assert np.mean(diff > 0.1 * LR) <= 0.02, (name, np.mean(diff > 0.1 * LR))
-        moved = max(moved, np.abs(want - first).max())
+        jg, tg = np.asarray(_leaf(jgrads, path)), _leaf(tgrads, path)
+        scale = np.abs(jg).max()
+        gap = np.abs(tg - jg) / scale
+        assert np.sum(gap > 0.1) <= FLIPS, (name, np.sort(gap.ravel())[-FLIPS - 1:])
+        assert gap.mean() <= 2e-2, (name, gap.mean())
+
+        first = _leaf(start, path)
+        dt, dj = _leaf(ours, path) - first, np.asarray(want) - first
+        rounding = np.spacing(np.abs(first))
+        for d in (dt, dj):
+            assert np.all(np.abs(d) <= LR * (1 + 1e-5) + rounding), (name, np.abs(d).max())
+        clear = np.abs(jg) > CUT * scale
+        apart = clear & (np.abs(dt - dj) > 0.1 * LR)
+        assert np.sum(apart) <= FLIPS, (name, np.sum(apart), np.sum(clear))
+        moved = max(moved, np.abs(dt).max(), np.abs(dj).max())
     assert moved >= 0.5 * LR  # and the step did move the parameters
 
 

@@ -51,7 +51,9 @@ Phases, printed in order; any failure exits non-zero before the last line:
      each through its wrapper against its plain version with the max error
      and the stated tolerance, the backward kernels bit-identical on two
      launches, one dilated and one odd-sized case at small N, and the same
-     times and bounds as phase 3;
+     times and bounds as phase 3; then the same checks at the train step's
+     size (N = 4 x 63 = 252) and the two backward kernels' times there; each
+     kernel's registers and spills (ptxas -v) beside its times;
   9. serve rntsm (TSM-ResNet50 + MotionSqueeze at the registry's width, f32,
      seeded init: the repository has no rntsm checkpoint) through
      serve.build and make_inference_fn: 3 requests of 8 rendered uint8 clips
@@ -160,6 +162,7 @@ TSM_TRAIN_BATCH, TSM_TRAIN_STEPS = 4, 3
 TSM_TIMED_REQUESTS = 3  # per path, interleaved, after the counted run
 PATCH, CORR_C = 15, 64
 CORR_N = TSM_BATCH * (TIMESTEPS - 1)
+CORR_TRAIN_N = TSM_TRAIN_BATCH * (TIMESTEPS - 1)
 # Correlation kernels vs their plain versions. Forward: an f32 sum of 64
 # products of L2-normalised features (|sum| <= 1) taken in another order.
 # Backward: an f32 sum of 225 terms g*f, g ~ N(0,1) and |f| <= 1, entries of
@@ -729,78 +732,120 @@ def _in_image_terms(size: int, patch: int, dilation: int) -> int:
                for p in range(size) for d in range(patch))
 
 
-def correlation_phase(Co) -> list[dict]:
+# The instance of each correlation kernel that the main paths launch (f32
+# NHWC, 64 channels, patch 15, dilation 1), as resource_lines names it.
+CORR_INSTANCES = {"correlation_fwd": "corr_fwd_kernel<1>",
+                  "correlation_bwd_f1": "corr_bwd_kernel<0, 1, 15>",
+                  "correlation_bwd_f2": "corr_bwd_kernel<1, 1, 15>"}
+CORR_TPU = {"correlation_fwd": "pathtracker_tpu/ops/correlation.py:82",
+            "correlation_bwd_f1": "pathtracker_tpu/ops/correlation.py:109 (the XLA VJP; "
+                                  "no Pallas kernel)",
+            "correlation_bwd_f2": "pathtracker_tpu/ops/correlation.py:109 (the XLA VJP; "
+                                  "no Pallas kernel)"}
+
+
+def correlation_inputs(Co, n, h, w, c, patch, seed):
+    """Seeded L2-normalised features f1, f2 and an N(0,1) cotangent g."""
     dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f1 = Co.l2_normalize(torch.randn((n, h, w, c), generator=gen, device=dev))
+    f2 = Co.l2_normalize(torch.randn((n, h, w, c), generator=gen, device=dev))
+    return f1, f2, torch.randn((n, h, w, patch * patch), generator=gen, device=dev)
 
-    def inputs(n, h, w, c, patch, seed):
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        f1 = Co.l2_normalize(torch.randn((n, h, w, c), generator=gen, device=dev))
-        f2 = Co.l2_normalize(torch.randn((n, h, w, c), generator=gen, device=dev))
-        return f1, f2, torch.randn((n, h, w, patch * patch), generator=gen, device=dev)
 
-    def errors(f1, f2, g, patch, dilation):
-        got = (Co.correlation(f1, f2, patch, dilation),
-               Co.correlation_bwd_f1(g, f2, patch, dilation),
-               Co.correlation_bwd_f2(g, f1, patch, dilation))
-        again = (Co.correlation_bwd_f1(g, f2, patch, dilation),
-                 Co.correlation_bwd_f2(g, f1, patch, dilation))
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(got[1:], again)):
-            fail("a correlation backward kernel gave different bits on two launches")
-        want = (Co.correlation_plain(f1, f2, patch, dilation),
-                Co.correlation_bwd_f1_plain(g, f2, patch, dilation),
-                Co.correlation_bwd_f2_plain(g, f1, patch, dilation))
-        errs = []
-        for a, b, atol in zip(got, want, (CORR_ATOL_FWD, CORR_ATOL_BWD, CORR_ATOL_BWD)):
-            if a.shape != b.shape or a.dtype != b.dtype or not torch.isfinite(a).all():
-                fail(f"correlation output {a.dtype} {tuple(a.shape)} vs plain "
-                     f"{b.dtype} {tuple(b.shape)}, or not finite")
-            errs.append((a - b).abs().max().item())
-            if errs[-1] > atol:
-                fail(f"correlation kernel off by {errs[-1]:.3g} > {atol}")
-        return errs
+def correlation_errors(Co, f1, f2, g, patch, dilation) -> list[float]:
+    """Max abs error of each kernel against its plain version; fails past the
+    stated tolerances or if a backward kernel's two launches differ."""
+    got = (Co.correlation(f1, f2, patch, dilation),
+           Co.correlation_bwd_f1(g, f2, patch, dilation),
+           Co.correlation_bwd_f2(g, f1, patch, dilation))
+    again = (Co.correlation_bwd_f1(g, f2, patch, dilation),
+             Co.correlation_bwd_f2(g, f1, patch, dilation))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got[1:], again)):
+        fail("a correlation backward kernel gave different bits on two launches")
+    want = (Co.correlation_plain(f1, f2, patch, dilation),
+            Co.correlation_bwd_f1_plain(g, f2, patch, dilation),
+            Co.correlation_bwd_f2_plain(g, f1, patch, dilation))
+    errs = []
+    for a, b, atol in zip(got, want, (CORR_ATOL_FWD, CORR_ATOL_BWD, CORR_ATOL_BWD)):
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.isfinite(a).all():
+            fail(f"correlation output {a.dtype} {tuple(a.shape)} vs plain "
+                 f"{b.dtype} {tuple(b.shape)}, or not finite")
+        errs.append((a - b).abs().max().item())
+        if errs[-1] > atol:
+            fail(f"correlation kernel off by {errs[-1]:.3g} > {atol}")
+    return errs
 
+
+def correlation_call(Co, name: str, f1, f2, g):
+    """(wrapper, tensor arguments) of the named correlation kernel."""
+    if name == "correlation_fwd":
+        return Co.correlation, (f1, f2)
+    return getattr(Co, name), (g, f2 if name == "correlation_bwd_f1" else f1)
+
+
+def correlation_timing(Co, name: str, f1, f2, g, plain: bool = True) -> dict:
+    """Device time per call of one correlation wrapper (and of its plain
+    version) at patch 15 on these inputs, its time per call from Python, and
+    the bound from these inputs: each input read once, each output written
+    once; one multiply-add for each product that involves a real f2 (f1)
+    pixel."""
+    wrapper, args = correlation_call(Co, name, f1, f2, g)
+    ms = device_ms(lambda: wrapper(*args, PATCH, 1), calls=5, replays=4)
+    per_call_ms = call_ms(lambda: wrapper(*args, PATCH, 1), iters=20, warmup=2)
+    plain_ms = None
+    if plain:
+        plain_fn = getattr(Co, f"{name.replace('_fwd', '')}_plain")
+        plain_ms = device_ms(lambda: plain_fn(*args, PATCH, 1), calls=1, replays=2)
+    out_elems = g.numel() if name == "correlation_fwd" else f1.numel()
+    nbytes = 4 * (sum(t.numel() for t in args) + out_elems)
+    flop = 2.0 * f1.shape[0] * CORR_C * _in_image_terms(SIDE, PATCH, 1) ** 2
+    bound_ms, bound_by = _bound(nbytes, flop)
+    return dict(ms=ms, plain_ms=plain_ms, per_call_ms=per_call_ms, bound_ms=bound_ms,
+                bound_by=bound_by, nbytes=nbytes, flop=flop)
+
+
+def correlation_phase(Co, resources: dict) -> list[dict]:
     for label, (n, h, w, c, patch, dilation) in (
             ("dilated", (2, 24, 24, 16, 5, 2)), ("odd-sized", (3, 19, 27, 10, 7, 1))):
-        errs = errors(*inputs(n, h, w, c, patch, 11), patch, dilation)
+        errs = correlation_errors(Co, *correlation_inputs(Co, n, h, w, c, patch, 11),
+                                  patch, dilation)
         print(f"kernel correlation, {label} case N={n} {h}x{w}x{c} patch {patch} "
               f"dilation {dilation}: max_abs_err fwd {errs[0]:.3g}, bwd_f1 {errs[1]:.3g}, "
               f"bwd_f2 {errs[2]:.3g} (held: {CORR_ATOL_FWD} forward, {CORR_ATOL_BWD} "
               f"backward)", flush=True)
 
-    f1, f2, g = inputs(CORR_N, SIDE, SIDE, CORR_C, PATCH, 3)
-    errs = errors(f1, f2, g, PATCH, 1)
-    # The products that involve a real f2 (f1) pixel: one multiply-add each.
-    terms = CORR_N * CORR_C * _in_image_terms(SIDE, PATCH, 1) ** 2
-    specs = [
-        ("correlation_fwd", Co.correlation, Co.correlation_plain, (f1, f2),
-         "pathtracker_tpu/ops/correlation.py:82"),
-        ("correlation_bwd_f1", Co.correlation_bwd_f1, Co.correlation_bwd_f1_plain, (g, f2),
-         "pathtracker_tpu/ops/correlation.py:109 (the XLA VJP; no Pallas kernel)"),
-        ("correlation_bwd_f2", Co.correlation_bwd_f2, Co.correlation_bwd_f2_plain, (g, f1),
-         "pathtracker_tpu/ops/correlation.py:109 (the XLA VJP; no Pallas kernel)"),
-    ]
     rows = []
-    for (name, wrapper, plain, args, replaces), err in zip(specs, errs):
-        ms = device_ms(lambda: wrapper(*args, PATCH, 1), calls=5, replays=4)
-        plain_ms = device_ms(lambda: plain(*args, PATCH, 1), calls=1, replays=2)
-        per_call_ms = call_ms(lambda: wrapper(*args, PATCH, 1), iters=20, warmup=2)
-        out_elems = g.numel() if name == "correlation_fwd" else f1.numel()
-        nbytes = 4 * (sum(t.numel() for t in args) + out_elems)
-        bound_ms, bound_by = _bound(nbytes, 2.0 * terms)
-        rows.append(dict(name=name, route="cuda",
-                         source="pathtracker_torch/csrc/correlation.cu",
-                         replaces=replaces, launches=0, max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=None))
-        print(f"kernel {name}: N={CORR_N} {SIDE}x{SIDE}x{CORR_C} patch {PATCH}: "
-              f"max_abs_err {err:.3g} (held: "
-              f"{CORR_ATOL_FWD if name == 'correlation_fwd' else CORR_ATOL_BWD})"
-              f"{'' if name == 'correlation_fwd' else '; bit-identical on two launches'}"
-              f" | device {ms:.3f} ms/launch, plain {plain_ms:.2f} ms, bound "
-              f"{bound_ms:.3f} ms by {bound_by} ({nbytes / 1e6:.0f} MB, "
-              f"{2 * terms / 1e9:.2f} GFLOP in-image; {bound_ms / ms:.0%} of bound) | "
-              f"wrapper {per_call_ms:.3f} ms/call from Python", flush=True)
+    # The serving shape (all three kernels), then the train step's (the
+    # backward kernels run only there).
+    for n, names in ((CORR_N, list(CORR_INSTANCES)),
+                     (CORR_TRAIN_N, ["correlation_bwd_f1", "correlation_bwd_f2"])):
+        f1, f2, g = correlation_inputs(Co, n, SIDE, SIDE, CORR_C, PATCH, 3)
+        errs = dict(zip(CORR_INSTANCES, correlation_errors(Co, f1, f2, g, PATCH, 1)))
+        for name in names:
+            t = correlation_timing(Co, name, f1, f2, g)
+            res = resources.get(CORR_INSTANCES[name], "no ptxas line")
+            if n == CORR_N:
+                rows.append(dict(name=name, route="cuda",
+                                 source="pathtracker_torch/csrc/correlation.cu",
+                                 replaces=CORR_TPU[name], launches=0, max_abs_err=errs[name],
+                                 ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                                 bound_by=t["bound_by"], library_ms=None, resources=res))
+            else:
+                row = next(r for r in rows if r["name"] == name)
+                row["train_shape"] = dict(n=n, max_abs_err=errs[name], ms=t["ms"],
+                                          plain_ms=t["plain_ms"], bound_ms=t["bound_ms"])
+            print(f"kernel {name}: N={n} {SIDE}x{SIDE}x{CORR_C} patch {PATCH}: "
+                  f"max_abs_err {errs[name]:.3g} (held: "
+                  f"{CORR_ATOL_FWD if name == 'correlation_fwd' else CORR_ATOL_BWD})"
+                  f"{'' if name == 'correlation_fwd' else '; bit-identical on two launches'}"
+                  f" | device {t['ms']:.3f} ms/launch, plain {t['plain_ms']:.2f} ms, bound "
+                  f"{t['bound_ms']:.3f} ms by {t['bound_by']} ({t['nbytes'] / 1e6:.0f} MB, "
+                  f"{t['flop'] / 1e9:.2f} GFLOP in-image; {t['bound_ms'] / t['ms']:.0%} of "
+                  f"bound) | wrapper {t['per_call_ms']:.3f} ms/call from Python | "
+                  f"{CORR_INSTANCES[name]}: {res}", flush=True)
+        del f1, f2, g
     return rows
 
 
@@ -993,16 +1038,27 @@ def resource_lines(log: str) -> list[str]:
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             name = next((k for k in INT_CELL_KERNELS if k in mangled), mangled)
-            templated = re.search(r"(corr_\w+?_kernel)I((?:Lb[01]E)+)", mangled)
-            if templated:  # corr_bwd_kernel<GATHER, VEC>, corr_fwd_kernel<VEC>
-                flags = re.findall(r"Lb([01])E", templated.group(2))
-                name = f"{templated.group(1)}<{', '.join(flags)}>"
+            templated = re.search(r"(corr_\w+?_kernel)I((?:L[bi]\d+E)+)", mangled)
+            if templated:  # corr_bwd_kernel<GATHER, VEC, P_T>, corr_fwd_kernel<VEC>
+                args = re.findall(r"L[bi](\d+)E", templated.group(2))
+                name = f"{templated.group(1)}<{', '.join(args)}>"
         elif "spill" in line and name:
             spill = line.strip()
         elif "Used" in line and name:
             out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
             name = None
     return out
+
+
+def print_resources(native, names) -> dict:
+    """Print each built kernel's ptxas account; {kernel: account}."""
+    resources = {}
+    for name in names:
+        for line in resource_lines(native.build_log(name)):
+            print(f"build: csrc/{name}.cu {line}", flush=True)
+            kernel, _, account = line.partition(": ")
+            resources[kernel] = account
+    return resources
 
 
 def main() -> int:
@@ -1026,9 +1082,7 @@ def main() -> int:
     built = _native.build()
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(f'csrc/{n}.cu' for n in built) or 'up to date'})", flush=True)
-    for name in _native.SIGNATURES:
-        for line in resource_lines(_native.build_log(name)):
-            print(f"build: csrc/{name}.cu {line}", flush=True)
+    resources = print_resources(_native, _native.SIGNATURES)
 
     rendered = [render_batch(seed, BATCH, TIMESTEPS, n_distractors=DISTRACTORS,
                              dot_size=DOT_SIZE) for seed in range(REQUESTS)]
@@ -1039,7 +1093,7 @@ def main() -> int:
     train_phase(serve, F, kernel_rows, rendered)
     del rendered
     torch.cuda.empty_cache()
-    correlation_rows = correlation_phase(Co)
+    correlation_rows = correlation_phase(Co, resources)
     torch.cuda.empty_cache()
     rntsm_serve_phase(serve, Co, correlation_rows)
     torch.cuda.empty_cache()

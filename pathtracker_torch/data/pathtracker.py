@@ -11,6 +11,8 @@ the JAX package's renderer, so both render the same clips.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 
@@ -47,10 +49,19 @@ def _splat(canvas: np.ndarray, yx: np.ndarray, value: int, size: int) -> None:
 def render_pathtracker_clip(rng: np.random.Generator, timesteps: int = 64,
                             size: int = 32, n_distractors: int = 14,
                             speed: float = 1.0, positive: bool | None = None,
-                            dot_size: int = 1) -> tuple[np.ndarray, int]:
-    """Render one clip: (uint8 [T,H,W,3], label in {0,1})."""
+                            dot_size: int | None = None) -> tuple[np.ndarray, int]:
+    """Render one clip: (uint8 [T,H,W,3], label in {0,1}). ``dot_size``
+    None means ``$PATHTRACKER_DOT_SIZE``, 1 where it is unset."""
+    if dot_size is None:
+        raw = os.environ.get("PATHTRACKER_DOT_SIZE", "1")
+        try:
+            dot_size = int(raw)
+        except ValueError:
+            raise ValueError(
+                f"$PATHTRACKER_DOT_SIZE must be an integer >= 1, got {raw!r}") from None
     if dot_size < 1:
-        raise ValueError(f"dot_size must be >= 1, got {dot_size}")
+        raise ValueError(f"dot_size must be >= 1 (got {dot_size}; check "
+                         "$PATHTRACKER_DOT_SIZE)")
     if positive is None:
         positive = bool(rng.integers(0, 2))
     tracks = _walk(rng, n_distractors + 1, timesteps, speed, size)  # [n, T, 2]
@@ -69,8 +80,9 @@ def render_pathtracker_clip(rng: np.random.Generator, timesteps: int = 64,
 
 
 def render_batch(seed: int, batch: int, timesteps: int = 64, n_distractors: int = 14,
-                 speed: float = 1.0, dot_size: int = 1):
-    """``batch`` clips from one seeded stream: (uint8 [B,T,32,32,3], int [B])."""
+                 speed: float = 1.0, dot_size: int | None = None):
+    """``batch`` clips from one seeded stream: (uint8 [B,T,32,32,3], int [B]);
+    ``dot_size`` as in ``render_pathtracker_clip``."""
     rng = np.random.default_rng(seed)
     clips = [render_pathtracker_clip(rng, timesteps, n_distractors=n_distractors,
                                      speed=speed, dot_size=dot_size)

@@ -23,7 +23,14 @@ def model_selector(args, timesteps: int, device=None, **model_kwargs):
         # matmul operands, f32 state).
         kwargs["dtype"] = "bfloat16"
     algo = getattr(args, "algo", "bptt")
-    if algo != "bptt":
+    if "rbp" in algo and family(args.model) == "recurrent":
+        # As the JAX package: --algo matters in the recurrent family only,
+        # and 'rbp' only for InT*. The port's InT has no grad_method: every
+        # other value ('Testing', set by the eval scripts) trains with BPTT.
+        if not args.model.startswith("InT"):
+            raise NotImplementedError(
+                f"--algo {algo!r} is implemented for InT*; "
+                f"{args.model!r} trains with bptt")
         raise NotImplementedError(
             f"--algo {algo!r}: Neumann RBP comes with a later slice of "
             "pathtracker_torch (ROADMAP.md queue 1 item 8)")

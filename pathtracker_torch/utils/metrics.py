@@ -63,7 +63,9 @@ def accuracy_topk(output, target, topk=(1,)):
     """Top-k accuracy over class logits [B, K] (reference
     utils/misc_functions.py:138-151). Returns one value per k, in percent."""
     target = target.reshape(-1)
-    idx = output.argsort(dim=-1, descending=True, stable=True)[:, :max(topk)]
+    # A stable ascending sort reversed, as the JAX package sorts: a tie goes
+    # to the higher class index.
+    idx = output.argsort(dim=-1, stable=True).flip(-1)[:, :max(topk)]
     correct = (idx == target[:, None]).float()
     return [correct[:, :k].sum() * (100.0 / target.shape[0]) for k in topk]
 

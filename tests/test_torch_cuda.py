@@ -315,10 +315,14 @@ def test_cuda_f32_path_matches_cpu(cuda):
 
 # (N, H, W, C, patch, dilation): the serving path's shape at a small N, the
 # JAX tests' cases, odd sizes with ragged tiles and a channel count that is
-# no multiple of 4 or 16, two displacement groups per axis, a wide dilation.
+# no multiple of 4 or 16, two displacement groups per axis, a wide dilation,
+# two 64-channel chunks, rntsm's patch at dilation 2 (the runtime-patch
+# instance), and the rntsm train step's shape (4 clips x 63 frame pairs).
 CORRELATION_CASES = [(3, 32, 32, 64, 15, 1), (2, 8, 8, 4, 5, 1), (1, 12, 12, 4, 5, 2),
                      (2, 7, 9, 3, 3, 1), (1, 37, 41, 21, 7, 1), (1, 20, 35, 24, 17, 1),
-                     (1, 9, 40, 8, 9, 3), (1, 5, 6, 70, 1, 1)]
+                     (1, 9, 40, 8, 9, 3), (1, 5, 6, 70, 1, 1), (2, 16, 16, 128, 15, 1),
+                     (1, 24, 24, 16, 15, 2), (4, 32, 32, 64, 15, 1),
+                     (252, 32, 32, 64, 15, 1)]
 
 
 def _correlation_inputs(n, h, w, c, patch, dev, seed=0):
@@ -367,12 +371,62 @@ def test_cuda_correlation_autograd_runs_the_backward_kernels(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", [(3, 32, 32, 64, 15, 1), (1, 37, 41, 21, 7, 1)], ids=str)
+def test_cuda_correlation_backward_replays_in_a_cuda_graph(cuda, case):
+    """Both backward wrappers launched twice in a row inside a captured CUDA
+    graph: every replay gives the bits of a direct launch."""
+    n, h, w, c, patch, dil = case
+    f1, f2, g = _correlation_inputs(n, h, w, c, patch, cuda, seed=2)
+    calls = ((corr.correlation_bwd_f1, f2), (corr.correlation_bwd_f2, f1))
+    eager = [fn(g, feat, patch, dil).clone() for fn, feat in calls]
+    torch.cuda.synchronize()
+    before = [fn.launches for fn, _ in calls]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [(fn(g, feat, patch, dil), fn(g, feat, patch, dil)) for fn, feat in calls]
+    assert [fn.launches - b for (fn, _), b in zip(calls, before)] == [2, 2]
+    for _ in range(3):
+        for pair in outs:
+            for t in pair:
+                t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for want, pair in zip(eager, outs):
+            assert all(torch.equal(t, want) for t in pair)
+
+
+@pytest.mark.gpu
+def test_cuda_correlation_backward_call_is_one_kernel(cuda):
+    """A backward wrapper's call is one corr_bwd_kernel launch and nothing
+    else on the card: 10 profiled calls, 10 kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = 10
+    f1, f2, g = _correlation_inputs(3, 32, 32, 64, 15, cuda)
+    for fn, feat in ((corr.correlation_bwd_f1, f2), (corr.correlation_bwd_f2, f1)):
+        fn(g, feat)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(g, feat)
+            torch.cuda.synchronize()
+        seen = [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(seen) == calls and all("corr_bwd_kernel" in k for k in seen), (
+            fn.__name__, seen)
+
+
+@pytest.mark.gpu
 def test_cuda_correlation_refuses_a_window_no_block_can_hold(cuda):
     """patch 15 at dilation 40: the shared-memory tile exceeds 227 KB even at
-    one row; the launch is refused and the wrapper raises."""
-    f1, f2, _ = _correlation_inputs(1, 8, 8, 4, 15, cuda)
+    one row; each launch is refused and its wrapper raises."""
+    f1, f2, g = _correlation_inputs(1, 8, 8, 4, 15, cuda)
     with pytest.raises(RuntimeError, match="CUDA error"):
         corr.correlation(f1, f2, 15, 40)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        corr.correlation_bwd_f1(g, f2, 15, 40)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        corr.correlation_bwd_f2(g, f1, 15, 40)
 
 
 @pytest.mark.gpu

@@ -74,3 +74,13 @@ def test_accuracy_topk_matches_jax():
     target = rng.integers(0, 7, size=12)
     _close(T.accuracy_topk(torch.tensor(output), torch.tensor(target), topk=(1, 3, 5)),
            J.accuracy_topk(jnp.asarray(output), jnp.asarray(target), topk=(1, 3, 5)))
+
+
+def test_accuracy_topk_breaks_ties_as_jax():
+    """A tie goes to the higher class index in both packages."""
+    output = np.array([[1, 1, 0], [0, 2, 2]], np.float32)
+    target = np.array([0, 1])
+    ours = T.accuracy_topk(torch.tensor(output), torch.tensor(target), topk=(1, 2))
+    theirs = J.accuracy_topk(jnp.asarray(output), jnp.asarray(target), topk=(1, 2))
+    _close(ours, theirs)
+    assert [float(v) for v in ours] == [0.0, 100.0]

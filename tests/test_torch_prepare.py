@@ -62,3 +62,25 @@ def test_renderer_matches_jax(dot_size, dist, speed):
     clips, labels = tpt.render_batch(4, 3, timesteps=6, dot_size=dot_size)
     assert clips.shape == (3, 6, 32, 32, 3) and clips.dtype == np.uint8
     assert set(labels.tolist()) <= {0, 1}
+
+
+def test_renderer_reads_dot_size_from_the_environment_as_jax(monkeypatch):
+    """``dot_size=None`` means ``$PATHTRACKER_DOT_SIZE`` (1 where unset), in
+    the renderer and in ``render_batch``; invalid values raise."""
+    monkeypatch.setenv("PATHTRACKER_DOT_SIZE", "2")
+    ours = tpt.render_pathtracker_clip(np.random.default_rng(0))
+    theirs = jpt.render_pathtracker_clip(np.random.default_rng(0))
+    np.testing.assert_array_equal(ours[0], theirs[0])
+    assert ours[1] == theirs[1]
+    np.testing.assert_array_equal(
+        tpt.render_batch(5, 2, timesteps=6)[0],
+        tpt.render_batch(5, 2, timesteps=6, dot_size=2)[0])
+    monkeypatch.delenv("PATHTRACKER_DOT_SIZE")
+    unset = tpt.render_pathtracker_clip(np.random.default_rng(0))
+    one = tpt.render_pathtracker_clip(np.random.default_rng(0), dot_size=1)
+    np.testing.assert_array_equal(unset[0], one[0])
+    assert unset[1] == one[1]
+    for raw in ("abc", "0"):
+        monkeypatch.setenv("PATHTRACKER_DOT_SIZE", raw)
+        with pytest.raises(ValueError, match="PATHTRACKER_DOT_SIZE"):
+            tpt.render_pathtracker_clip(np.random.default_rng(0))

@@ -134,3 +134,22 @@ def test_registry_and_engine_surface():
     with torch.no_grad():
         logit, states, gates = tengine.model_step(m, x, "InT", test=True)
     assert states.shape == (1, 2, 1, 4, 4) and gates.shape == (1, 2, 8, 4, 4)
+
+
+def test_engine_algo_as_jax():
+    """--algo matters in the recurrent family only: InT builds under 'bptt'
+    and 'Testing' (what the eval scripts set), raises under 'rbp' until the
+    port has RBP; rntsm ignores it. The JAX package builds the same three."""
+    from pathtracker_tpu import engine as jengine
+
+    def args(model, algo):
+        return types.SimpleNamespace(model=model, algo=algo, dimensions=8,
+                                     fb_kernel_size=3)
+
+    for model, algo in (("InT", "bptt"), ("InT", "Testing"), ("rntsm", "rbp")):
+        jengine.model_selector(args(model, algo), 2)
+        m = tengine.model_selector(args(model, algo), 2, device="cpu")
+        assert isinstance(m, torch.nn.Module), (model, algo)
+    jengine.model_selector(args("InT", "rbp"), 2)
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        tengine.model_selector(args("InT", "rbp"), 2, device="cpu")

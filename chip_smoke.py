@@ -49,11 +49,11 @@ Phases, printed in order; any failure exits non-zero before the last line:
      path's size (N = 8 clips x 63 frame pairs = 504 images of 32x32x64,
      patch 15) on seeded L2-normalised features and an N(0,1) cotangent:
      each through its wrapper against its plain version with the max error
-     and the stated tolerance, the backward kernels bit-identical on two
-     launches, one dilated and one odd-sized case at small N, and the same
-     times and bounds as phase 3; then the same checks at the train step's
-     size (N = 4 x 63 = 252) and the two backward kernels' times there; each
-     kernel's registers and spills (ptxas -v) beside its times;
+     and the stated tolerance, each kernel bit-identical on two launches,
+     one dilated and one odd-sized case at small N, and the same times and
+     bounds as phase 3; then the same checks and times at the train step's
+     size (N = 4 x 63 = 252); each kernel's registers and spills (ptxas -v)
+     beside its times;
   9. serve rntsm (TSM-ResNet50 + MotionSqueeze at the registry's width, f32,
      seeded init: the repository has no rntsm checkpoint) through
      serve.build and make_inference_fn: 3 requests of 8 rendered uint8 clips
@@ -734,7 +734,7 @@ def _in_image_terms(size: int, patch: int, dilation: int) -> int:
 
 # The instance of each correlation kernel that the main paths launch (f32
 # NHWC, 64 channels, patch 15, dilation 1), as resource_lines names it.
-CORR_INSTANCES = {"correlation_fwd": "corr_fwd_kernel<1>",
+CORR_INSTANCES = {"correlation_fwd": "corr_fwd_kernel<1, 15>",
                   "correlation_bwd_f1": "corr_bwd_kernel<0, 1, 15>",
                   "correlation_bwd_f2": "corr_bwd_kernel<1, 1, 15>"}
 CORR_TPU = {"correlation_fwd": "pathtracker_tpu/ops/correlation.py:82",
@@ -755,15 +755,15 @@ def correlation_inputs(Co, n, h, w, c, patch, seed):
 
 def correlation_errors(Co, f1, f2, g, patch, dilation) -> list[float]:
     """Max abs error of each kernel against its plain version; fails past the
-    stated tolerances or if a backward kernel's two launches differ."""
-    got = (Co.correlation(f1, f2, patch, dilation),
-           Co.correlation_bwd_f1(g, f2, patch, dilation),
-           Co.correlation_bwd_f2(g, f1, patch, dilation))
-    again = (Co.correlation_bwd_f1(g, f2, patch, dilation),
-             Co.correlation_bwd_f2(g, f1, patch, dilation))
+    stated tolerances or if a kernel's two launches differ."""
+    def launch_all():
+        return (Co.correlation(f1, f2, patch, dilation),
+                Co.correlation_bwd_f1(g, f2, patch, dilation),
+                Co.correlation_bwd_f2(g, f1, patch, dilation))
+    got, again = launch_all(), launch_all()
     torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(got[1:], again)):
-        fail("a correlation backward kernel gave different bits on two launches")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail("a correlation kernel gave different bits on two launches")
     want = (Co.correlation_plain(f1, f2, patch, dilation),
             Co.correlation_bwd_f1_plain(g, f2, patch, dilation),
             Co.correlation_bwd_f2_plain(g, f1, patch, dilation))
@@ -817,13 +817,12 @@ def correlation_phase(Co, resources: dict) -> list[dict]:
               f"backward)", flush=True)
 
     rows = []
-    # The serving shape (all three kernels), then the train step's (the
-    # backward kernels run only there).
-    for n, names in ((CORR_N, list(CORR_INSTANCES)),
-                     (CORR_TRAIN_N, ["correlation_bwd_f1", "correlation_bwd_f2"])):
+    # The serving shape, then the train step's (where the backward kernels
+    # run, and the forward once a step).
+    for n in (CORR_N, CORR_TRAIN_N):
         f1, f2, g = correlation_inputs(Co, n, SIDE, SIDE, CORR_C, PATCH, 3)
         errs = dict(zip(CORR_INSTANCES, correlation_errors(Co, f1, f2, g, PATCH, 1)))
-        for name in names:
+        for name in CORR_INSTANCES:
             t = correlation_timing(Co, name, f1, f2, g)
             res = resources.get(CORR_INSTANCES[name], "no ptxas line")
             if n == CORR_N:
@@ -838,8 +837,8 @@ def correlation_phase(Co, resources: dict) -> list[dict]:
                                           plain_ms=t["plain_ms"], bound_ms=t["bound_ms"])
             print(f"kernel {name}: N={n} {SIDE}x{SIDE}x{CORR_C} patch {PATCH}: "
                   f"max_abs_err {errs[name]:.3g} (held: "
-                  f"{CORR_ATOL_FWD if name == 'correlation_fwd' else CORR_ATOL_BWD})"
-                  f"{'' if name == 'correlation_fwd' else '; bit-identical on two launches'}"
+                  f"{CORR_ATOL_FWD if name == 'correlation_fwd' else CORR_ATOL_BWD}); "
+                  f"bit-identical on two launches"
                   f" | device {t['ms']:.3f} ms/launch, plain {t['plain_ms']:.2f} ms, bound "
                   f"{t['bound_ms']:.3f} ms by {t['bound_by']} ({t['nbytes'] / 1e6:.0f} MB, "
                   f"{t['flop'] / 1e9:.2f} GFLOP in-image; {t['bound_ms'] / t['ms']:.0%} of "
@@ -1039,7 +1038,7 @@ def resource_lines(log: str) -> list[str]:
             mangled = line.split("'")[1]
             name = next((k for k in INT_CELL_KERNELS if k in mangled), mangled)
             templated = re.search(r"(corr_\w+?_kernel)I((?:L[bi]\d+E)+)", mangled)
-            if templated:  # corr_bwd_kernel<GATHER, VEC, P_T>, corr_fwd_kernel<VEC>
+            if templated:  # corr_bwd_kernel<GATHER, VEC, P_T>, corr_fwd_kernel<VEC, P_T>
                 args = re.findall(r"L[bi](\d+)E", templated.group(2))
                 name = f"{templated.group(1)}<{', '.join(args)}>"
         elif "spill" in line and name:

@@ -19,27 +19,68 @@
 // launches give the same bits. The plain PyTorch versions are
 // pathtracker_torch/ops/correlation.py::*_plain.
 //
-// Bound: neither bytes nor operations alone. Per 32x32x64 image with P=15 the
-// forward does 29.5 MFLOP on 1.45 MB (f1 + f2 + volume): at the f32 FMA peak
-// and at the memory rate both take about the same time. The volume is 64% of
-// the bytes, 225 floats (900 B) per pixel.
+// Bound: neither bytes nor operations alone. Per 32x32x64 image with P=15
+// each kernel does 29.5 MFLOP (23.0 inside the image) on 1.45 MB: at the f32
+// FMA peak and at the memory rate both take about the same time. The volume
+// (the forward's output, the backward's input g) is 64% of the bytes, 225
+// floats (900 B) a pixel. So each input has to be read from device memory
+// once, and the FMAs fed from registers, not one shared-memory float each.
 //
-// Forward design. The Pallas kernel holds one whole image (f1 and the padded
-// f2, 800 KB) in VMEM; a Hopper block has 227 KB, so the work is tiled:
-//   * A block takes a tile of `th` rows x 32 columns of pixels (th = 8 unless
-//     the shared-memory tile would not fit), one thread per pixel, a lane per
-//     column. Borders are predicated: no padded copy of f2 is made.
-//   * Channels go through shared memory in chunks of 16, each pixel's chunk
-//     padded to 20 floats, so that a warp's float4 reads of 32 neighbouring
-//     pixels touch every bank once.
-//   * The accumulators have to live across the channel chunks, so a block
-//     takes only 5 dy x 15 dx displacements (75 registers) and the
-//     displacement groups are spread over the grid. The thread keeps its own
-//     f1 chunk in registers and reads the f2 window from shared memory: one
-//     shared-memory float per FMA, which is what limits it. The block's
-//     outputs are staged in shared memory and written as runs of 5*P
-//     contiguous floats per pixel, lanes along the run, because a lane per
-//     pixel would write 4 bytes every 900.
+// Forward design (corr_fwd_kernel). The Pallas kernel holds one whole image
+// (f1 and the padded f2, 800 KB) in VMEM; a Hopper block has 227 KB, so the
+// work is tiled as in the backward kernel below, whose tile, ring and lane
+// layout it shares:
+//   * A block takes 8 rows x 32 columns x all 64 channels of f1 (more
+//     channels go in 64-wide chunks, one after the other in the block, each
+//     adding to what the one before wrote), so f1 and f2 are read from
+//     device memory once a tile. Its 8 warps are its rows; a lane owns 8
+//     neighbouring pixels x 8 channels of f1 (4 pixel groups x 8 channel
+//     groups, channels 4j..4j+3 and 32+4j..32+4j+3 of group j), which it
+//     loads into registers once.
+//   * The P displacement rows dy are the steps of the block. Step dy needs
+//     f2 rows y + dy*dil - r of its 8 rows: they stream through a ring in
+//     shared memory (th + 2*min(dil, th) rows of the 32 + (P-1)*dil halo
+//     columns, 118 KB at P=15), each step copying only the rows it adds, two
+//     steps ahead, with cp.async and one barrier a step (each warp issues its
+//     share of the copies before it computes). Halo columns outside the
+//     image are zeroed once and never loaded; rows outside it are not
+//     staged, and their warps skip the step (warp-uniform).
+//   * Register tile: a lane sums, over its 8 channels, its 8 pixels x the 15
+//     displacements dx of the step (120 accumulators). The halo column h is
+//     the outer loop: each f2 float read from shared memory feeds every pixel
+//     whose window holds it (up to 8 FMAs; 960 FMAs for 44 16-byte reads a
+//     step, 5.5 a float), each f1 register 15. With P fixed (15, rntsm's) the
+//     loop unrolls; a runtime-P instance of the same kernel takes the other
+//     patches and dilations, dx outer, in passes of 8 (so that it does not
+//     spill).
+//   * Then the 8 channel lanes of a pixel group reduce-scatter their partial
+//     sums with shuffles in a fixed order (60 + 30 + 15 exchanges), so that
+//     lane l ends with pixel l's 15 sums of the step: no float atomics, the
+//     same bits on every launch. (Lanes that hold their pixels in reverse,
+//     so that the first exchange needs no selects, gained nothing.)
+//   * The volume: a step gives each pixel P floats (60 B) at a 900 B stride.
+//     Each warp stages its row's sums of 5 steps in shared memory (a pixel's
+//     run of 5*P floats at an odd stride, so the lanes' writes hit distinct
+//     banks) and writes them as runs of 300 B a pixel, consecutive lanes on
+//     consecutive floats. Storing from the accumulators (4 bytes every 900)
+//     took 2.24 ms at N=504 against 0.66 for this scheme, staging 1 or 3
+//     steps 0.71 and 0.68 (PERF.md, scripts/torch_corr_probe.py).
+//   * The other lane layout measured: a lane sums all the channels of its 8
+//     pixels x 15 dx, so nothing is reduced across lanes, with f1 read from
+//     shared memory; a warp then covers the whole 8 x 32 tile, so the 8 warps
+//     of a block take 8 displacement rows at once (15 f2 rows staged, 8
+//     channels a stage, 3 stages, and the sums of 8 steps staged for the
+//     writes: 216 KB). It took 0.97 ms at N=504 against 0.78 for this one
+//     (PERF.md): its 60 16-byte reads for 960 FMAs (against 44 and 105
+//     shuffles here) and 2.2x the staged bytes cost more than the shuffles.
+//   * What bounds it (scripts/torch_corr_probe.py, patched copies, N=504):
+//     as is 0.66 ms; without the products and shuffles 0.39, without the
+//     stores 0.53, without the f2 copies 0.61; an eighth of the FMAs 0.57,
+//     no shuffles 0.60. The inner loop (~0.28 ms), the writes of the volume
+//     (~0.14) and the copies (~0.05) add up instead of overlapping: every
+//     warp computes, then writes, at the same steps. Two steps in flight
+//     instead of three were 2% faster, four 2% slower; 4 rows a block and
+//     two blocks an SM the same.
 //
 // Backward design (corr_bwd_kernel; both gradients, one kernel). Per image
 // at P=15 each moves 1.45 MB, 64% of it the cotangent g (900 B a pixel), and
@@ -87,24 +128,17 @@
 //     issue copies, for 8 that compute, were slower: too few to issue them.
 //     So was reading the cotangent as aligned float4s (one unrolled loop for
 //     each alignment of a step's runs): 20% slower, at more registers.
-//   * Left for later: a banded GEMM on tensor cores. The rntsm path is f32
-//     with TF32 off (the JAX op is exact f32), so it would need 3xTF32 at
-//     three times the MMAs, and the band (15 of 46 columns a row) wastes two
-//     thirds of each tile; the f32 cores are not what bounds this kernel.
-//   * All offsets are 64-bit: at batch 128, T=64 the volume has 1.86e9
-//     elements.
+//
+// Both: all offsets are 64-bit (at batch 128, T=64 the volume has 1.86e9
+// elements). Left for later: a banded GEMM on tensor cores. The JAX op is
+// exact f32 and rntsm pins TF32 off, so it would need 3xTF32 at three times
+// the MMAs, and the band (15 of 46 columns a row) wastes two thirds of each
+// tile: worked out, about the f32 FMA peak, not above it.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TW = 32;            // tile width: one lane per column
-constexpr int TH_MAX = 8;         // tile height: one warp per row
-constexpr int CC = 16;            // channels per shared-memory chunk
-constexpr int CQ = CC / 4;        // float4s per chunk
-constexpr int CS4 = CQ + 1;       // padded float4 stride of one pixel's chunk
-constexpr int DYB = 5;            // forward: dy values per block
-constexpr int DXB = 15;           // forward: dx values per block
 constexpr int SMEM_LIMIT = 232448;  // 227 KB: the most a block can opt into
 
 // Channels [c, c+4) of one pixel's feature vector `p` (C floats), zero past C.
@@ -131,115 +165,6 @@ __device__ __forceinline__ void store4(float* __restrict__ p, int c, int C, floa
     if (c + 1 < C) p[c + 1] = v.y;
     if (c + 2 < C) p[c + 2] = v.z;
     if (c + 3 < C) p[c + 3] = v.w;
-  }
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
-  s = fmaf(a.x, b.x, s);
-  s = fmaf(a.y, b.y, s);
-  s = fmaf(a.z, b.z, s);
-  s = fmaf(a.w, b.w, s);
-  return s;
-}
-
-// Channels [c0, c0+16) of the rows x cols window of `feat` (image n) whose
-// top-left pixel is (oy, ox), into shared memory; zero outside the image.
-template <bool VEC>
-__device__ __forceinline__ void load_window(float4* __restrict__ dst,
-                                            const float* __restrict__ feat,
-                                            long long n, int H, int W, int C, int c0,
-                                            int oy, int ox, int rows, int cols) {
-  const int nvec = rows * cols * CQ;
-  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
-    const int q = i % CQ;
-    const int pos = i / CQ;
-    const int gy = oy + pos / cols;
-    const int gx = ox + pos % cols;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-      v = load4<VEC>(feat + ((n * H + gy) * W + gx) * C, c0 + 4 * q, C);
-    dst[pos * CS4 + q] = v;
-  }
-}
-
-// Grid: one block per (image, row tile, column tile, dy group, dx group).
-template <bool VEC>
-__global__ void __launch_bounds__(TW * TH_MAX, 2)
-corr_fwd_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
-                float* __restrict__ out, int H, int W, int C, int P, int dil,
-                int tiles_y, int tiles_x, int groups_y, int groups_x) {
-  extern __shared__ float4 smem4[];
-  const int th = blockDim.x / TW;
-  long long b = blockIdx.x;
-  const int dx0 = (int)(b % groups_x) * DXB;  b /= groups_x;
-  const int dy0 = (int)(b % groups_y) * DYB;  b /= groups_y;
-  const int x0 = (int)(b % tiles_x) * TW;     b /= tiles_x;
-  const int y0 = (int)(b % tiles_y) * th;     b /= tiles_y;
-  const long long n = b;
-  const int ndy = min(DYB, P - dy0), ndx = min(DXB, P - dx0);
-  const int r = (P - 1) / 2 * dil;
-  const int rows = th + (ndy - 1) * dil, cols = TW + (ndx - 1) * dil;
-  const int lane = threadIdx.x % TW, ty = threadIdx.x / TW;
-  const int y = y0 + ty, x = x0 + lane;
-  const bool live = y < H && x < W;
-
-  float acc[DYB][DXB];
-#pragma unroll
-  for (int dy = 0; dy < DYB; ++dy)
-#pragma unroll
-    for (int dx = 0; dx < DXB; ++dx) acc[dy][dx] = 0.f;
-
-  for (int c0 = 0; c0 < C; c0 += CC) {
-    __syncthreads();  // the previous chunk has been read
-    load_window<VEC>(smem4, f2, n, H, W, C, c0, y0 + dy0 * dil - r, x0 + dx0 * dil - r,
-                     rows, cols);
-    float4 a[CQ];
-#pragma unroll
-    for (int q = 0; q < CQ; ++q)
-      a[q] = live ? load4<VEC>(f1 + ((n * H + y) * W + x) * C, c0 + 4 * q, C)
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
-    __syncthreads();
-#pragma unroll
-    for (int dy = 0; dy < DYB; ++dy) {
-      if (dy < ndy) {
-        const float4* row = smem4 + ((ty + dy * dil) * cols + lane) * CS4;
-#pragma unroll
-        for (int dx = 0; dx < DXB; ++dx) {
-          if (dx < ndx) {
-            const float4* p = row + dx * dil * CS4;
-            float s = acc[dy][dx];
-#pragma unroll
-            for (int q = 0; q < CQ; ++q) s = dot4(a[q], p[q], s);
-            acc[dy][dx] = s;
-          }
-        }
-      }
-    }
-  }
-
-  // Stage the tile's outputs, one odd-strided row per pixel, then write them
-  // with consecutive threads on consecutive displacements.
-  __syncthreads();
-  float* stage = reinterpret_cast<float*>(smem4);
-  const int per = ndy * ndx;
-  const int stride = per | 1;
-#pragma unroll
-  for (int dy = 0; dy < DYB; ++dy)
-#pragma unroll
-    for (int dx = 0; dx < DXB; ++dx)
-      if (dy < ndy && dx < ndx) stage[threadIdx.x * stride + dy * ndx + dx] = acc[dy][dx];
-  __syncthreads();
-  const int total = th * TW * per;
-  const long long PP = (long long)P * P;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int pix = i / per;
-    const int rem = i - pix * per;
-    const int dy = rem / ndx;
-    const int dx = rem - dy * ndx;
-    const int py = y0 + pix / TW, px = x0 + pix % TW;
-    if (py < H && px < W)
-      out[((n * H + py) * W + px) * PP + (long long)(dy0 + dy) * P + dx0 + dx] =
-          stage[pix * stride + rem];
   }
 }
 
@@ -496,6 +421,226 @@ corr_bwd_kernel(const float* __restrict__ g, const float* __restrict__ feat,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Forward (design in the header): the backward's tile, ring and lane layout.
+
+constexpr int FDX_RT = 8;  // runtime-P instance: displacements dx a pass
+constexpr int FSS = 5;     // displacement rows staged before a warp writes them
+
+// s += the 8-channel dot product of (a, b) and (fa, fb), in a fixed order.
+__device__ __forceinline__ float dot8(float4 a, float4 b, float4 fa, float4 fb, float s) {
+  s = fmaf(a.x, fa.x, s);
+  s = fmaf(a.y, fa.y, s);
+  s = fmaf(a.z, fa.z, s);
+  s = fmaf(a.w, fa.w, s);
+  s = fmaf(b.x, fb.x, s);
+  s = fmaf(b.y, fb.y, s);
+  s = fmaf(b.z, fb.z, s);
+  s = fmaf(b.w, fb.w, s);
+  return s;
+}
+
+// acc[i][k] += f1 . f2 over the thread's 8 channels, for pixel i of its
+// group and displacement dx0 + k (< P) of one displacement row. `a`, `b`:
+// the pixels' f1 channels; `f`: the staged f2 row at the group's first halo
+// column (BCH floats a column). P_T > 0 (dilation 1): the halo column h is
+// the outer loop and everything unrolls. P_T = 0: displacement outer,
+// runtime P and dilation. Either way each accumulator takes its 8 FMAs in
+// channel order.
+template <int P_T, int NDX>
+__device__ __forceinline__ void fwd_products(float (&acc)[BK][NDX], const float4 (&a)[BK],
+                                             const float4 (&b)[BK],
+                                             const float* __restrict__ f, int P, int dil,
+                                             int dx0, int cg) {
+  if constexpr (P_T > 0) {
+    static_assert(P_T == NDX, "one pass of displacements");
+#pragma unroll
+    for (int h = 0; h < BK + P_T - 1; ++h) {
+      const float4 fa = *reinterpret_cast<const float4*>(f + h * BCH + 4 * cg);
+      const float4 fb = *reinterpret_cast<const float4*>(f + h * BCH + 4 * BCG + 4 * cg);
+#pragma unroll
+      for (int i = 0; i < BK; ++i) {
+        const int k = h - i;
+        if (k >= 0 && k < P_T) acc[i][k] = dot8(a[i], b[i], fa, fb, acc[i][k]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < NDX; ++k) {
+      if (dx0 + k >= P) break;
+#pragma unroll
+      for (int i = 0; i < BK; ++i) {
+        const float* p = f + (i + (dx0 + k) * dil) * BCH + 4 * cg;
+        acc[i][k] = dot8(a[i], b[i], *reinterpret_cast<const float4*>(p),
+                         *reinterpret_cast<const float4*>(p + 4 * BCG), acc[i][k]);
+      }
+    }
+  }
+}
+
+// Sum acc over the 8 channel lanes of the pixel group (lane bits 0-2, `cg`)
+// and scatter it: afterwards acc[0] of lane cg holds the whole sums of pixel
+// cg. Each exchange hands the partner the half it keeps, in a fixed order
+// (60 + 30 + 15 shuffles at NDX = 15).
+template <int NDX>
+__device__ __forceinline__ void reduce_channel_lanes(float (&acc)[BK][NDX], int cg) {
+#pragma unroll
+  for (int half = BK / 2; half >= 1; half /= 2) {
+    const bool up = cg & half;
+#pragma unroll
+    for (int j = 0; j < half; ++j)
+#pragma unroll
+      for (int dx = 0; dx < NDX; ++dx) {
+        const float send = up ? acc[j][dx] : acc[j + half][dx];
+        const float keep = up ? acc[j + half][dx] : acc[j][dx];
+        acc[j][dx] = keep + __shfl_xor_sync(0xffffffffu, send, half);
+      }
+  }
+}
+
+// dst[px*PP + j] = src[px*sst + j] (ADD: +=) for px < cols, j < len: runs
+// of `len` floats at stride PP, consecutive lanes on consecutive floats.
+template <bool ADD>
+__device__ __forceinline__ void write_runs(float* __restrict__ dst,
+                                           const float* __restrict__ src, long long PP,
+                                           int sst, int len, int cols, int lane) {
+#pragma unroll 4
+  for (int i = lane; i < cols * len; i += 32) {
+    const int px = i / len, j = i - px * len;
+    if (ADD)
+      dst[px * PP + j] += src[px * sst + j];
+    else
+      dst[px * PP + j] = src[px * sst + j];
+  }
+}
+
+// corr[n,y,x,dy*P+dx] = sum_c f1[n,y,x,c] * f2[n, y+dy*dil-r, x+dx*dil-r, c]
+// for a tile of th rows x 32 columns. P_T > 0: patch P_T at dilation 1;
+// P_T = 0: patch and dilation from the arguments. VEC: C % 4 == 0 and every
+// pointer 16-byte aligned, so copies go 16 bytes at a time.
+// Grid: one block per (image, row tile, column tile).
+template <bool VEC, int P_T>
+__global__ void __launch_bounds__(32 * BTH_MAX, BBLOCKS_PER_SM)
+corr_fwd_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
+                float* __restrict__ out, int H, int W, int C, int p_arg, int dil_arg,
+                int tiles_y, int tiles_x) {
+  extern __shared__ float4 smem4[];
+  constexpr int NDX = P_T > 0 ? P_T : FDX_RT;  // displacements dx a pass
+  const int P = P_T > 0 ? P_T : p_arg;
+  const int dil = P_T > 0 ? 1 : dil_arg;
+  const int th = P_T > 0 ? BTH_MAX : blockDim.x / 32;  // the fixed instance: 8 rows
+  long long b = blockIdx.x;
+  const int x0 = (int)(b % tiles_x) * BTW; b /= tiles_x;
+  const int y0 = (int)(b % tiles_y) * th;  b /= tiles_y;
+  const long long n = b;
+  const int span = (P - 1) * dil;
+  const int r = span / 2;
+  const int hc = BTW + span;                 // halo columns of an f2 row
+  const int dm = min(dil, th);               // ring rows a step adds
+  const int ring = th + (BSTAGES - 1) * dm;  // f2 rows staged
+  const int sst = (FSS * P) | 1;             // staged floats a pixel: odd
+  const long long PP = (long long)P * P;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int pg = lane / BCG, cg = lane % BCG;
+  float* fring = reinterpret_cast<float*>(smem4);
+  float* ostage = fring + (size_t)ring * hc * BCH + (size_t)warp * BTW * sst;
+  const int top = y0 - r;   // the f2 row of tile row 0 at step 0
+  const int y = y0 + warp;  // this warp's row
+  const int lo = max(0, r - x0), hi = min(hc, W - x0 + r);  // halo columns in the image
+  const int cols = min(BTW, W - x0);                        // tile columns in the image
+
+  // Halo columns outside the image stay zero in every ring slot. (Column c
+  // of the `outside` ones is halo column c below lo, hi + c - lo from there on.)
+  const int outside = hc - (hi - lo);
+  for (int i = tid; i < ring * outside * (BCH / 4); i += blockDim.x) {
+    const int c = i / (BCH / 4) % outside, s = i / (BCH / 4) / outside;
+    const int col = c < lo ? c : hi + c - lo;
+    smem4[((size_t)s * hc + col) * (BCH / 4) + i % (BCH / 4)] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  // The copies of step e: the f2 rows top + e*dil + t (t < th) that step e-1
+  // did not have, channels [c0, c0+64), into ring slot (e*dm + t) % ring,
+  // their columns in the image. Rows outside the image are not staged.
+  auto stage = [&](int e, int c0) {
+    constexpr int per = VEC ? 4 : 1;  // floats a copy
+#pragma unroll 1
+    for (int t = e == 0 ? 0 : max(0, th - dil); t < th; ++t) {
+      const int row = top + e * dil + t;
+      if (row < 0 || row >= H) continue;
+      float* dst = fring + ((size_t)((e * dm + t) % ring) * hc + lo) * BCH;
+      const float* src = f2 + ((n * H + row) * W + x0 - r + lo) * C + c0;
+      for (int i = tid; i < (hi - lo) * (BCH / per); i += blockDim.x) {
+        const int col = i / (BCH / per), ch = per * (i % (BCH / per));
+        if (VEC)
+          cp_async_16(dst + col * BCH + ch, src + col * C + ch, c0 + ch < C);
+        else
+          cp_async_4(dst + col * BCH + ch, src + col * C + ch, c0 + ch < C);
+      }
+    }
+  };
+
+  for (int c0 = 0; c0 < C; c0 += BCH) {
+#pragma unroll
+    for (int e = 0; e < BSTAGES - 1; ++e) {
+      if (e < P) stage(e, c0);
+      cp_async_commit();
+    }
+    // The thread's f1: 8 pixels x 8 channels of this chunk, zero outside.
+    float4 a[BK], bq[BK];
+#pragma unroll
+    for (int i = 0; i < BK; ++i) {
+      const int x = x0 + pg * BK + i;
+      a[i] = bq[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (y < H && x < W) {
+        const float* p = f1 + ((n * H + y) * W + x) * C;
+        a[i] = load4<VEC>(p, c0 + 4 * cg, C);
+        bq[i] = load4<VEC>(p, c0 + 4 * BCG + 4 * cg, C);
+      }
+    }
+    for (int e = 0; e < P; ++e) {
+      cp_async_wait<BSTAGES - 2>();
+      __syncthreads();  // step e has landed; step e-1's slot is free
+      if (e + BSTAGES - 1 < P) stage(e + BSTAGES - 1, c0);
+      const int row = top + e * dil + warp;  // its f2 row
+      const bool in = y < H && row >= 0 && row < H;
+      const float* f = fring + ((size_t)((e * dm + warp) % ring) * hc + pg * BK) * BCH;
+      float* put = ostage + lane * sst + e % FSS * P;  // pixel `lane`'s sums of step e
+      for (int dx0 = 0; dx0 < P; dx0 += NDX) {
+        float acc[BK][NDX];
+#pragma unroll
+        for (int i = 0; i < BK; ++i)
+#pragma unroll
+          for (int k = 0; k < NDX; ++k) acc[i][k] = 0.f;
+        if (in) {
+          fwd_products<P_T, NDX>(acc, a, bq, f, P, dil, dx0, cg);
+          reduce_channel_lanes<NDX>(acc, cg);
+        }
+#pragma unroll
+        for (int k = 0; k < NDX; ++k)
+          if (dx0 + k < P) put[dx0 + k] = acc[0][k];
+      }
+      cp_async_commit();
+      if (e % FSS == FSS - 1 || e == P - 1) {
+        // The row's staged steps e0..e, a run of `len` floats a pixel (a
+        // constant where P_T is a multiple of FSS); later chunks add.
+        __syncwarp();
+        const int e0 = e - e % FSS;
+        const int len = P_T > 0 && P_T % FSS == 0 ? FSS * P_T : (e - e0 + 1) * P;
+        if (y < H) {
+          float* dst = out + ((n * H + y) * W + x0) * PP + (long long)e0 * P;
+          if (c0 == 0)
+            write_runs<false>(dst, ostage, PP, sst, len, cols, lane);
+          else
+            write_runs<true>(dst, ostage, PP, sst, len, cols, lane);
+        }
+        __syncwarp();
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free for the next chunk
+  }
+}
+
 bool bad_args(long long n, long long h, long long w, long long c, long long patch,
               long long dil) {
   const long long big = 1LL << 30;
@@ -511,7 +656,7 @@ bool aligned16(const void* a, const void* b, const void* c) {
 // The tallest tile (most, most/2, ..., 1 rows) whose shared memory fits; 0
 // if none.
 template <typename F>
-int pick_rows(F smem_bytes, int most = TH_MAX) {
+int pick_rows(F smem_bytes, int most) {
   for (int th = most; th >= 1; th /= 2)
     if (smem_bytes(th) <= (long long)SMEM_LIMIT) return th;
   return 0;
@@ -565,23 +710,24 @@ int correlation_fwd(const void* f1, const void* f2, void* out, long long n, long
                     long long w, long long c, long long patch, long long dil,
                     void* stream) {
   if (bad_args(n, h, w, c, patch, dil)) return (int)cudaErrorInvalidValue;
-  const long long ndy = patch < DYB ? patch : DYB, ndx = patch < DXB ? patch : DXB;
+  const long long hc = BTW + (patch - 1) * dil;
+  if (hc * BCH * 4 > SMEM_LIMIT) return (int)cudaErrorInvalidConfiguration;
+  const long long sst = (FSS * patch) | 1;
   auto smem_bytes = [&](int th) {
-    const long long window = (th + (ndy - 1) * dil) * (TW + (ndx - 1) * dil) * CS4 * 16;
-    const long long stage = (long long)th * TW * ((ndy * ndx) | 1) * 4;
-    return window > stage ? window : stage;
+    return 4 * ((th + (BSTAGES - 1) * (dil < th ? dil : th)) * hc * BCH + th * BTW * sst);
   };
-  const int th = pick_rows(smem_bytes);
+  const int th = pick_rows(smem_bytes, BTH_MAX);
   if (th == 0) return (int)cudaErrorInvalidConfiguration;  // window too wide for a block
-  const long long tiles_y = (h + th - 1) / th, tiles_x = (w + TW - 1) / TW;
-  const long long groups_y = (patch + DYB - 1) / DYB, groups_x = (patch + DXB - 1) / DXB;
-  const long long blocks = n * tiles_y * tiles_x * groups_y * groups_x;
+  const long long tiles_y = (h + th - 1) / th, tiles_x = (w + BTW - 1) / BTW;
+  const long long blocks = n * tiles_y * tiles_x;
   const bool vec = c % 4 == 0 && aligned16(f1, f2, out);
-  auto kernel = vec ? corr_fwd_kernel<true> : corr_fwd_kernel<false>;
-  return launch(kernel, blocks, th * TW, smem_bytes(th), (cudaStream_t)stream,
+  // The fixed instance (patch 15, dilation 1: 190 KB) always gets 8 rows.
+  auto kernel = !vec ? corr_fwd_kernel<false, 0>
+                : patch == BP && dil == 1 ? corr_fwd_kernel<true, BP>
+                                          : corr_fwd_kernel<true, 0>;
+  return launch(kernel, blocks, th * 32, smem_bytes(th), (cudaStream_t)stream,
                 (const float*)f1, (const float*)f2, (float*)out, (int)h, (int)w, (int)c,
-                (int)patch, (int)dil, (int)tiles_y, (int)tiles_x, (int)groups_y,
-                (int)groups_x);
+                (int)patch, (int)dil, (int)tiles_y, (int)tiles_x);
 }
 
 // g [n,h,w,patch*patch], f2 [n,h,w,c] -> df1 [n,h,w,c], all f32.

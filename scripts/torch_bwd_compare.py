@@ -17,8 +17,8 @@ builds that checkout's kernels and runs phases of this checkout's
   correlation  the correlation kernels against their plain versions at the
                rntsm serving shape (N=504 images of 32x32x64, patch 15) and
                the train step's (N=252), and the device time per call of
-               correlation_bwd_f1 and correlation_bwd_f2 at both, with their
-               bound and registers.
+               correlation_fwd, correlation_bwd_f1 and correlation_bwd_f2 at
+               both, with their bound and registers.
 Two checkouts are compared only within one run of this script: the same
 card, the same power limit, taking turns.
 """
@@ -74,7 +74,7 @@ def run_one(root: str, phases: list[str]) -> int:
                 Co, n, chip_smoke.SIDE, chip_smoke.SIDE, chip_smoke.CORR_C,
                 chip_smoke.PATCH, 3)
             errs = chip_smoke.correlation_errors(Co, f1, f2, g, chip_smoke.PATCH, 1)
-            for name, err in zip(("correlation_bwd_f1", "correlation_bwd_f2"), errs[1:]):
+            for name, err in zip(chip_smoke.CORR_INSTANCES, errs):
                 t = chip_smoke.correlation_timing(Co, name, f1, f2, g, plain=False)
                 print(f"correlation: {name} N={n}: {t['ms']:.4f} ms, bound "
                       f"{t['bound_ms']:.4f} ms ({t['bound_ms'] / t['ms']:.1%}), max_abs_err "

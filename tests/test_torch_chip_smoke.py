@@ -23,6 +23,10 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115corr_fwd_kernelILb1
 ptxas info    : Function properties for _ZN12_GLOBAL__N_115corr_fwd_kernelILb1EEEvPKfS2_Pfiiiiiiiiii
     56 bytes stack frame, 80 bytes spill stores, 80 bytes spill loads
 ptxas info    : Used 128 registers, used 1 barriers, 56 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115corr_fwd_kernelILb1ELi15EEEvPKfS2_Pfiiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115corr_fwd_kernelILb1ELi15EEEvPKfS2_Pfiiiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111k1_bwd_kernelEPKfS1_' for 'sm_90a'
 ptxas info    : Function properties for _ZN12_GLOBAL__N_111k1_bwd_kernelEPKfS1_
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
@@ -39,6 +43,8 @@ def test_resource_lines_name_every_kernel_instance():
         "cmem[0]; 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "corr_fwd_kernel<1>: Used 128 registers, used 1 barriers, 56 bytes cumulative "
         "stack size; 56 bytes stack frame, 80 bytes spill stores, 80 bytes spill loads",
+        "corr_fwd_kernel<1, 15>: Used 255 registers, used 1 barriers; 0 bytes stack "
+        "frame, 0 bytes spill stores, 0 bytes spill loads",
         "k1_bwd_kernel: Used 124 registers, used 1 barriers; 0 bytes stack frame, "
         "0 bytes spill stores, 0 bytes spill loads",
     ]

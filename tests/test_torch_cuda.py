@@ -15,6 +15,7 @@ import torch
 
 from pathtracker_torch.models.int_circuit import InT
 from pathtracker_torch.models.tsm_resnet import TSMResNet
+from pathtracker_torch.ops import _native
 from pathtracker_torch.ops import correlation as corr
 from pathtracker_torch.ops import int_fused as F
 
@@ -31,6 +32,11 @@ K3_ARGS = ("conv_e", "mean1", "rstd1", "scale1", "bias1", "new_inh", "inh",
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    # Every kernel library is built and loaded before the first test: one
+    # that is built and loaded after torch.profiler first ran in the process
+    # has its kernels missing, in part or whole, from later profiles.
+    for name in _native.SIGNATURES:
+        _native._library(name)
     return torch.device("cuda")
 
 
@@ -339,7 +345,7 @@ def test_cuda_correlation_kernels_match_plain(cuda, case):
     """Forward: f32 sums of C products of L2-normalised features (|sum| <= 1)
     in another order, atol 1e-5. Backward: sums of patch^2 terms g*f with
     g ~ N(0,1) and |f| <= 1, atol 1e-4. Each wrapper launches once; two
-    launches of a backward kernel give the same bits (no float atomics)."""
+    launches of a kernel give the same bits (no float atomics)."""
     n, h, w, c, patch, dil = case
     f1, f2, g = _correlation_inputs(n, h, w, c, patch, cuda)
     before = [k.launches for k in corr.KERNELS]
@@ -354,6 +360,7 @@ def test_cuda_correlation_kernels_match_plain(cuda, case):
                                rtol=0, atol=1e-4)
     torch.testing.assert_close(df2, corr.correlation_bwd_f2_plain(g, f1, patch, dil),
                                rtol=0, atol=1e-4)
+    assert torch.equal(out, corr.correlation(f1, f2, patch, dil))
     assert torch.equal(df1, corr.correlation_bwd_f1(g, f2, patch, dil))
     assert torch.equal(df2, corr.correlation_bwd_f2(g, f1, patch, dil))
 
@@ -393,6 +400,46 @@ def test_cuda_correlation_backward_replays_in_a_cuda_graph(cuda, case):
         torch.cuda.synchronize()
         for want, pair in zip(eager, outs):
             assert all(torch.equal(t, want) for t in pair)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(3, 32, 32, 64, 15, 1), (1, 37, 41, 21, 7, 1)], ids=str)
+def test_cuda_correlation_forward_replays_in_a_cuda_graph(cuda, case):
+    """The forward wrapper launched twice in a row inside a captured CUDA
+    graph: every replay gives the bits of a direct launch."""
+    n, h, w, c, patch, dil = case
+    f1, f2, _ = _correlation_inputs(n, h, w, c, patch, cuda, seed=2)
+    eager = corr.correlation(f1, f2, patch, dil).clone()
+    torch.cuda.synchronize()
+    before = corr.correlation.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = (corr.correlation(f1, f2, patch, dil), corr.correlation(f1, f2, patch, dil))
+    assert corr.correlation.launches - before == 2
+    for _ in range(3):
+        for t in outs:
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(t, eager) for t in outs)
+
+
+@pytest.mark.gpu
+def test_cuda_correlation_forward_call_is_one_kernel(cuda):
+    """A forward wrapper's call is one corr_fwd_kernel launch and nothing
+    else on the card: 10 profiled calls, 10 kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = 10
+    f1, f2, _ = _correlation_inputs(3, 32, 32, 64, 15, cuda)
+    corr.correlation(f1, f2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            corr.correlation(f1, f2)
+        torch.cuda.synchronize()
+    seen = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(seen) == calls and all("corr_fwd_kernel" in k for k in seen), seen
 
 
 @pytest.mark.gpu

@@ -67,7 +67,19 @@ Phases, printed in order; any failure exits non-zero before the last line:
      3 steps of batch 4, T=64 on one batch: finite stats, one launch of each
      of the three kernels per step, the last loss below the first, step
      latency, clips/s, peak memory;
- 11. one JSON line naming every kernel with its numbers.
+ 11. the held-out eval path (python -m pathtracker_torch.eval.test_model):
+     write a 512-clip test split (T=64, dist 14, speed 1, 2-pixel dots,
+     seed 8, empty train shards) with make_synthetic_dataset, decode it with
+     the port's reader (the native C++ one where it builds, else Python;
+     the codec and its MB/s are printed), byte-equal to the same clips
+     rendered in memory; evaluate chainE (InT, dims 32, k 7, --bf16, batch
+     128, prep_gifs=0) with evaluate_model: the test_perf npz holds arr_0
+     and arr_1, the loss is finite, accuracy at least 0.6, each forward
+     kernel launched T times a batch; the eval step's logits bit-equal to
+     make_inference_fn(probs=False) on seeded loader batches; eval clips/s
+     end to end beside serving's, and the share of the loop spent waiting
+     on the loader;
+ 12. one JSON line naming every kernel with its numbers.
 The last line is {"ok": true, "device": {...}}. It needs a CUDA card and
 the repository beside it; without either it exits non-zero and prints no
 result.
@@ -75,18 +87,23 @@ result.
 
 from __future__ import annotations
 
+import contextlib
+import glob
 import json
 import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+BUILD = os.path.join(ROOT, "build")
 CHECKPOINT = os.path.join(ROOT, "results_conv", "64_1_14", "chainE", "saved_models",
                           "model_val_acc_0072_epoch_15_checkpoint.pth.tar")
 BATCH, TIMESTEPS, SIDE, C = 128, 64, 32, 32
@@ -183,6 +200,10 @@ TSM_LOGIT_ATOL = 1e-3
 # 1.1e-2. A wiring error moves the gradients by O(1).
 TSM_GRAD_MAX, TSM_GRAD_MEAN = 0.2, 5e-2
 TSM_GRAD_TIMESTEPS = 8
+
+# The held-out eval path: a rendered test split of 4 batches (the shards'
+# seed is not the serving clips'), evaluated as test_model.py does.
+EVAL_CLIPS, EVAL_SEED = 4 * BATCH, 8
 
 
 def fail(msg: str):
@@ -435,6 +456,7 @@ def serve_phase(serve, F, kernel_rows: list[dict], rendered) -> None:
               f"of {BATCH} clips (T={TIMESTEPS})", flush=True)
     print(f"serve: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           "over the timed requests", flush=True)
+    return BATCH * len(times["fused"]) / sum(times["fused"])
 
 
 def _bf16_ulp(a, b):
@@ -1030,6 +1052,144 @@ def rntsm_train_phase(serve, Co, kernel_rows: list[dict]) -> None:
           f"peak device memory {peak / 2**30:.2f} GiB", flush=True)
 
 
+@contextlib.contextmanager
+def _environ(**values):
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class _WaitClock:
+    """Iterates a loader and keeps the seconds spent waiting for each batch."""
+
+    def __init__(self, loader):
+        self.loader, self.waits = loader, []
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                return
+            self.waits.append(time.perf_counter() - t)
+            yield batch
+
+
+def eval_phase(serve, F, kernel_rows: list[dict], serve_clips_per_s: float) -> None:
+    """The held-out eval path (python -m pathtracker_torch.eval.test_model)
+    on a rendered test split of EVAL_CLIPS clips."""
+    from pathtracker_torch.data import native, registry
+    from pathtracker_torch.data.pathtracker import (make_synthetic_dataset,
+                                                    render_pathtracker_clip)
+    from pathtracker_torch.data.pipeline import tfr_data_loader
+    from pathtracker_torch.data.tfrecord import read_clip_records
+    from pathtracker_torch.eval import test_model
+
+    dev = torch.device(DEVICE)
+    os.makedirs(BUILD, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp, _environ(
+            PATHTRACKER_DATA_ROOT=tmp, PATHTRACKER_DOT_SIZE=str(DOT_SIZE)):
+        # Shards as the registry lays them out; empty train shards, so the
+        # registry finds the config and renders nothing.
+        root = registry._config_dir(DISTRACTORS, 1, TIMESTEPS)
+        t0 = time.perf_counter()
+        make_synthetic_dataset(root, n_train=0, n_test=EVAL_CLIPS, timesteps=TIMESTEPS,
+                               n_distractors=DISTRACTORS, seed=EVAL_SEED)
+        write_s = time.perf_counter() - t0
+        codec = "native" if native.available() else "python"
+        reader = native.read_clip_records if codec == "native" else read_clip_records
+        files = sorted(glob.glob(os.path.join(root, "test-*")))
+        t0 = time.perf_counter()
+        records = [r for path in files for r in reader(path, TIMESTEPS)]
+        decode_s = time.perf_counter() - t0
+        rng = np.random.default_rng(EVAL_SEED)
+        for i, (clip, label) in enumerate(records):
+            want, want_label = render_pathtracker_clip(rng, TIMESTEPS,
+                                                       n_distractors=DISTRACTORS)
+            if not (np.array_equal(clip, want) and label == want_label):
+                fail(f"eval: record {i} differs from the clip rendered in memory")
+        if len(records) != EVAL_CLIPS:
+            fail(f"eval: {len(records)} records decoded, {EVAL_CLIPS} written")
+        mb = sum(c.nbytes for c, _ in records) / 1e6
+        del records
+        print(f"eval: wrote {EVAL_CLIPS} clips (T={TIMESTEPS}, dist {DISTRACTORS}, "
+              f"{DOT_SIZE}-pixel dots) in {write_s:.2f} s; codec {codec}: decoded "
+              f"{mb:.1f} MB in {decode_s:.3f} s ({mb / decode_s:.1f} MB/s), byte-equal "
+              "to the clips rendered in memory", flush=True)
+
+        # The main path: counts from 0, evaluate_model as test_model.py runs it.
+        args = SimpleNamespace(model="InT", name="chainE", batch_size=BATCH, bf16=True,
+                               dimensions=C, fb_kernel_size=7, ckpt=CHECKPOINT,
+                               pretrained=False, algo="bptt", device=DEVICE)
+        results = os.path.join(tmp, "results")
+        for k in F.KERNELS:
+            k.launches = 0
+        acc, loss = test_model.evaluate_model(results, args, prep_gifs=0,
+                                              dist=DISTRACTORS, speed=1, length=TIMESTEPS)
+        launches = [k.launches for k in F.KERNELS]
+        batches = EVAL_CLIPS // BATCH
+        expected = [batches * TIMESTEPS] * len(F.FORWARD_KERNELS) + [0] * len(F.BACKWARD_KERNELS)
+        if launches != expected:
+            fail(f"eval: kernel launches {launches}, expected {expected}")
+        for row, k in zip(kernel_rows, F.KERNELS):
+            row["launches_eval"] = k.launches
+            row["launches"] += k.launches
+        saved = np.load(os.path.join(
+            results, f"test_perf_dist_{DISTRACTORS}_speed_1_length_{TIMESTEPS}.npz"))
+        if saved.files != ["arr_0", "arr_1"] or (
+                float(saved["arr_0"]), float(saved["arr_1"])) != (acc, loss):
+            fail(f"eval: test_perf npz holds {saved.files}")
+        print(f"eval: evaluate_model, {batches} batches of {BATCH}: accuracy {acc:.4f} "
+              f"(minimum {MIN_ACCURACY}), BCE {loss:.4f}; kernel launches {launches} "
+              f"(K1, K2, K3 forward; backward); test_perf npz holds arr_0, arr_1",
+              flush=True)
+        if not np.isfinite(loss) or acc < MIN_ACCURACY:
+            fail(f"eval: accuracy {acc:.4f} or loss {loss} out of bounds")
+
+        # The eval step against the serving function on seeded loader batches.
+        model = serve.build(ckpt=CHECKPOINT, length=TIMESTEPS, bf16=True, device=dev)
+        infer = serve.make_inference_fn(model, "InT", probs=False)
+        pattern = os.path.join(root, "test-*")
+        seeded = 0
+        with torch.inference_mode():
+            for clips, labels in tfr_data_loader(pattern, batch_size=BATCH,
+                                                 timesteps=TIMESTEPS, seed=0):
+                got = test_model.eval_batch(model, "InT", clips, labels)[0][:, 0]
+                if not torch.equal(got, infer(clips)):
+                    fail(f"eval: batch {seeded}: eval-step logits differ from "
+                         "make_inference_fn's")
+                seeded += 1
+        if seeded != batches:
+            fail(f"eval: the seeded loader gave {seeded} batches, not {batches}")
+        print(f"eval: eval-step logits bit-equal to make_inference_fn(probs=False) on "
+              f"{seeded} seeded loader batches", flush=True)
+
+        # Timed: decode, prefetch, H2D and forward, one unseeded pass.
+        clock = _WaitClock(tfr_data_loader(pattern, batch_size=BATCH, timesteps=TIMESTEPS))
+        before = [k.launches for k in F.FORWARD_KERNELS]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        test_model.evaluate_batches(model, "InT", clock)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        rose = [k.launches - b for k, b in zip(F.FORWARD_KERNELS, before)]
+        if rose != [batches * TIMESTEPS] * len(rose):
+            fail(f"eval: timed pass launched {rose}")
+        print(f"eval: {EVAL_CLIPS / total:.1f} clips/s end to end (decode, prefetch, "
+              f"H2D, forward with states and gates) over {len(clock.waits)} batches "
+              f"of {BATCH}, against {serve_clips_per_s:.1f} clips/s serving (fused); "
+              f"waiting on the loader {sum(clock.waits) / total:.1%} of the loop "
+              f"(first batch {clock.waits[0] * 1e3:.1f} ms)", flush=True)
+
+
 def resource_lines(log: str) -> list[str]:
     """'kernel: N registers, S bytes smem, spills' from ptxas -v's output."""
     out, name, spill = [], None, ""
@@ -1086,7 +1246,7 @@ def main() -> int:
     rendered = [render_batch(seed, BATCH, TIMESTEPS, n_distractors=DISTRACTORS,
                              dot_size=DOT_SIZE) for seed in range(REQUESTS)]
     kernel_rows = kernel_phase(F)
-    serve_phase(serve, F, kernel_rows, rendered)
+    serve_clips_per_s = serve_phase(serve, F, kernel_rows, rendered)
     kernel_rows += backward_kernel_phase(F)
     gradient_phase(serve, F, rendered)
     train_phase(serve, F, kernel_rows, rendered)
@@ -1097,6 +1257,8 @@ def main() -> int:
     rntsm_serve_phase(serve, Co, correlation_rows)
     torch.cuda.empty_cache()
     rntsm_train_phase(serve, Co, correlation_rows)
+    torch.cuda.empty_cache()
+    eval_phase(serve, F, kernel_rows, serve_clips_per_s)
     kernel_rows += correlation_rows
     if any(row["launches"] <= 0 for row in kernel_rows):
         fail(f"a kernel was never launched on the main paths: {kernel_rows}")

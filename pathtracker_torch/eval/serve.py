@@ -19,8 +19,6 @@ import torch
 
 from pathtracker_torch import engine
 from pathtracker_torch.data.prepare import prepare_batch
-from pathtracker_torch.train.checkpoint import load_params
-from pathtracker_torch.train.torch_import import state_dict_from_jax
 
 
 def make_inference_fn(model, model_name: str, probs: bool = True,
@@ -58,6 +56,5 @@ def build(model: str = "InT", ckpt: str | None = None, length: int = 64,
                            remat_blocks=remat_blocks)
     net = engine.model_selector(args, length, device=device, **model_kwargs)
     if ckpt:
-        net.load_state_dict(state_dict_from_jax(model, load_params(ckpt)),
-                            strict=True)
+        engine.load_ckpt(net, ckpt)
     return net.eval()

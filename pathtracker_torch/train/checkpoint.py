@@ -1,4 +1,5 @@
-"""Checkpoint reading (pathtracker_tpu/train/checkpoint.py:50-99).
+"""Checkpoint reading and best-checkpoint selection
+(pathtracker_tpu/train/checkpoint.py:50-125).
 
 The JAX package writes ``{"state_dict": params, "epoch", "acc", "extra"}``
 with flax's msgpack serialization; the params are a flat {name: array} dict
@@ -9,10 +10,14 @@ exactly the types flax writes: maps, arrays, str, bin, ints, floats, nil,
 bool, and ext type 1 — an ndarray, itself a msgpack ``(shape, dtype name,
 C-order bytes)`` (flax.serialization._ndarray_to_bytes). Saving, and reading
 the reference's torch-pickle checkpoints, come with the training slice.
+``find_best_checkpoint`` reproduces the val.npz-argmax, mtime-sorted
+selection of reference test_model.py:59-64.
 """
 
 from __future__ import annotations
 
+import glob
+import os
 import struct
 
 import numpy as np
@@ -139,3 +144,21 @@ def load_params(path: str) -> dict:
     state_dict with ``train.torch_import.state_dict_from_jax``."""
     state = load_checkpoint(path)
     return state["state_dict"] if "state_dict" in state else state
+
+
+def find_best_checkpoint(results_folder: str) -> str:
+    """The val.npz balacc argmax, indexed into the mtime-sorted
+    saved_models/*.tar (reference test_model.py:59-64)."""
+    perfs = np.load(os.path.join(results_folder, "val.npz"))["balacc"]
+    arg_perf = int(np.argmax(perfs))
+    weights = glob.glob(os.path.join(results_folder, "saved_models", "*.tar"))
+    # The rolling last-epoch snapshot is not a best-val checkpoint; it is
+    # always the newest file, so the clamp below would otherwise pick it.
+    weights = [w for w in weights
+               if os.path.basename(w) != "model_last_epoch_checkpoint.pth.tar"]
+    weights.sort(key=os.path.getmtime)
+    if not weights:
+        raise FileNotFoundError(f"no checkpoints under {results_folder}/saved_models")
+    # Checkpoints exist only for improving epochs while val.npz has one
+    # entry per epoch, so the index is clamped, as the reference's was.
+    return weights[min(arg_perf, len(weights) - 1)]

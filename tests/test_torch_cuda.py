@@ -500,3 +500,61 @@ def test_cuda_tsm_resnet_fused_matches_plain_correlation(cuda):
     for (name, p), q in zip(fused.named_parameters(), plain.parameters()):
         scale = max(q.grad.abs().max().item(), 1e-3)
         assert ((p.grad - q.grad).abs().max() / scale).item() <= 0.1, name
+
+
+@pytest.mark.gpu
+def test_cuda_evaluate_model_runs_the_fused_kernels(cuda, tmp_path, monkeypatch):
+    """evaluate_model (InT, 32 channels, --bf16, batch 4, T=8, the chainE
+    weights) on a rendered test split of two batches: T launches of each
+    forward kernel a batch and none backward, the test_perf npz written.
+    Where the native reader builds, every ShardView the loader opened is
+    closed again, and the batches it gathered out of the pooled decode
+    buffers hold the clips the Python codec decodes from the same shards."""
+    import glob
+    import os
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from pathtracker_torch.data import native, registry
+    from pathtracker_torch.data.pathtracker import make_synthetic_dataset
+    from pathtracker_torch.data.pipeline import tfr_data_loader
+    from pathtracker_torch.data.tfrecord import read_clip_records
+    from pathtracker_torch.eval import test_model
+
+    timesteps, batch = 8, 4
+    monkeypatch.setenv("PATHTRACKER_DATA_ROOT", str(tmp_path / "data"))
+    root = registry._config_dir(14, 1, timesteps)
+    make_synthetic_dataset(root, n_train=0, n_test=2 * batch, timesteps=timesteps)
+    opened = []
+
+    class Recorded(native.ShardView):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            opened.append(self)
+
+    monkeypatch.setattr(native, "ShardView", Recorded)
+    ckpt = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "results_conv", "64_1_14", "chainE", "saved_models",
+                        "model_val_acc_0072_epoch_15_checkpoint.pth.tar")
+    args = SimpleNamespace(model="InT", batch_size=batch, bf16=True, dimensions=C,
+                           fb_kernel_size=7, ckpt=ckpt, pretrained=False, algo="bptt",
+                           device="cuda")
+    before = [k.launches for k in F.KERNELS]
+    acc, loss = test_model.evaluate_model(str(tmp_path / "out"), args, prep_gifs=0,
+                                          dist=14, speed=1, length=timesteps)
+    assert [k.launches - b for k, b in zip(F.KERNELS, before)] == [2 * timesteps] * 3 + [0] * 3
+    saved = np.load(tmp_path / "out" / f"test_perf_dist_14_speed_1_length_{timesteps}.npz")
+    assert saved.files == ["arr_0", "arr_1"] and (float(saved["arr_0"]), float(saved["arr_1"])) == (acc, loss)
+    assert np.isfinite(loss) and 0.0 <= acc <= 1.0
+    if native.available():
+        assert len(opened) == 2 and all(v._handle is None for v in opened)
+        records = {c.tobytes(): y for path in sorted(glob.glob(os.path.join(root, "test-*")))
+                   for c, y in read_clip_records(path, timesteps)}
+        seen = 0
+        for clips, labels in tfr_data_loader(os.path.join(root, "test-*"), batch_size=batch,
+                                             timesteps=timesteps, seed=0):
+            for clip, label in zip(clips, labels):
+                assert records[clip.tobytes()] == label
+                seen += 1
+        assert seen == len(records) == 2 * batch

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive pathtracker_torch's serving and training paths on one CUDA card (an
-H100) and hold every CUDA kernel on those paths against its plain PyTorch
-version.
+"""Drive pathtracker_torch's serving, training, eval and training-loop paths
+on one CUDA card (an H100) and hold every CUDA kernel on those paths against
+its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -79,7 +79,23 @@ Phases, printed in order; any failure exits non-zero before the last line:
      make_inference_fn(probs=False) on seeded loader batches; eval clips/s
      end to end beside serving's, and the share of the loop spent waiting
      on the loader;
- 12. one JSON line naming every kernel with its numbers.
+ 12. the training loop (python -m pathtracker_torch.train) with train_InT.sh's
+     flags (batch 180, T=64, dims 32, kernel 7) on a rendered root of 360 +
+     360 clips, each run capped at 2 steps an epoch: (a) loop.main with
+     --bf16 --epochs 1 --auto-resume, warm-started from chainE: finite
+     losses, the JAX package's artifact set, each forward kernel launched
+     2T per step plus T per val batch and each backward kernel T per step,
+     the rolling checkpoint read back bit-equal to the returned weights and
+     its Adam count; the loop's step times (batch_time and data_time) beside
+     phase 7's bare step, validation seconds, the rolling checkpoint's write
+     time and size, peak memory, the val balanced accuracy; (b) the same
+     with --epochs 2: "optimizer state restored", epoch 1, cumulative logs,
+     the count continued; (c) the CLI as a subprocess, sent SIGTERM after
+     its first logged step: exit 0, the terminated line, the rolling
+     checkpoint; (d) train_InT.sh as written (f32, the eager cell, seeded
+     init): no kernel launch, finite losses, step time and peak memory;
+ 13. one JSON line naming every kernel with its numbers (launches summed over
+     the main paths, with each path's count beside).
 The last line is {"ok": true, "device": {...}}. It needs a CUDA card and
 the repository beside it; without either it exits non-zero and prints no
 result.
@@ -92,6 +108,7 @@ import glob
 import json
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -113,7 +130,8 @@ TIMED_REQUESTS = 6  # per path, interleaved, after the counted run
 TRAIN_STEPS = 10  # counted steps of the fused path
 TIMED_STEPS = 5  # per path, interleaved, after the counted steps
 GRAD_TIMESTEPS = 8  # depth of the held fused-vs-eager gradient comparison
-REFERENCE_BATCH = 180  # train_InT.sh's batch, run as one step
+REFERENCE_BATCH = 180  # train_InT.sh's batch
+REFERENCE_STEPS = 5  # timed bare steps at that batch, here and on each side of the loop's window
 LEARNING_RATE = 3e-4
 DEVICE = "cuda"
 
@@ -168,6 +186,12 @@ ALONE_CALLS = 10
 # The __global__ functions of csrc/int_cell.cu and csrc/int_cell_bwd.cu.
 INT_CELL_KERNELS = ("k1_kernel", "k2_kernel", "k3_kernel", "k1_bwd_kernel",
                     "k2_bwd_kernel", "k3_bwd_kernel", "finish_kernel")
+# The arguments of K1, K2 and K3 (forward, and backward before the cotangents).
+K1_ARGS = ("exc", "att_x", "a_u", "a_u_b")
+K2_ARGS = ("conv_i", "mean0", "rstd0", "scale0", "bias0", "inp", "gi_x", "inh",
+           "i_u", "i_u_b", "alpha", "mu")
+K3_ARGS = ("conv_e", "mean1", "rstd1", "scale1", "bias1", "new_inh", "inh", "gated",
+           "exc", "e_w", "e_w_b", "e_u", "e_u_b", "kappa", "gamma")
 # Noise clips (bench.py's uniform uint8) are off the training distribution:
 # there the trained recurrence is chaotic and f32 rounding differences grow
 # to O(1) by T=64, so the clips are rendered.
@@ -204,6 +228,16 @@ TSM_GRAD_TIMESTEPS = 8
 # The held-out eval path: a rendered test split of 4 batches (the shards'
 # seed is not the serving clips'), evaluated as test_model.py does.
 EVAL_CLIPS, EVAL_SEED = 4 * BATCH, 8
+
+# The training loop: train_InT.sh's flags on a root of two reference batches
+# a split (rendered at ~17.6 ms a clip on the card's host), LOOP_STEPS steps
+# an epoch; the window of timed steps is one run of WINDOW_EPOCHS such epochs
+# that logs every step.
+LOOP_CLIPS, LOOP_STEPS, WINDOW_EPOCHS = 2 * REFERENCE_BATCH, 2, 6
+# A step's log line: epoch, index, batch_time and data_time (s).
+STEP_LINE = re.compile(r"^Epoch: \[(\d+)\]\[(\d+)/\d+\].*?Time: ([\d.]+) .*?Data: ([\d.]+)",
+                       re.M)
+ROLLING_NAME = "model_last_epoch_checkpoint.pth.tar"
 
 
 def fail(msg: str):
@@ -279,13 +313,14 @@ def _short(kernel_name: str) -> str:
     return re.split(r"[<(]", name)[0]
 
 
-def kernel_inputs(gen: torch.Generator, dev) -> dict:
-    """Seeded inputs at the serving width, in the cell's ranges."""
+def kernel_inputs(gen: torch.Generator, dev, n_rows: int = ROWS) -> dict:
+    """Seeded inputs of ``n_rows`` rows (the serving batch's by default), in
+    the cell's ranges."""
     def r(*shape, scale=1.0, pos=False, dtype=torch.float32):
         x = torch.randn(shape, generator=gen, device=dev) * scale
         return (torch.nn.functional.softplus(x) if pos else x).to(dtype)
 
-    bf, rows = torch.bfloat16, (ROWS, C)
+    bf, rows = torch.bfloat16, (n_rows, C)
     d = dict(exc=r(*rows, pos=True), inh=r(*rows, pos=True), new_inh=r(*rows, pos=True),
              att_x=r(*rows, dtype=bf), inp=r(*rows, pos=True, dtype=bf),
              gi_x=r(*rows, dtype=bf), conv_i=r(*rows, scale=2.0, dtype=bf),
@@ -325,16 +360,11 @@ def kernel_phase(F) -> list[dict]:
     # (name, wrapper, plain, argument names, TPU kernel, gate products,
     #  f32 elementwise operations per element counted from the code)
     specs = [
-        ("k1_attention", F.k1_attention, F.k1_attention_plain,
-         ("exc", "att_x", "a_u", "a_u_b"), "pathtracker_tpu/ops/int_fused.py:184",
-         1, 6),
-        ("k2_inhibition", F.k2_inhibition, F.k2_inhibition_plain,
-         ("conv_i", "mean0", "rstd0", "scale0", "bias0", "inp", "gi_x", "inh",
-          "i_u", "i_u_b", "alpha", "mu"), "pathtracker_tpu/ops/int_fused.py:305",
-         1, 30),
-        ("k3_excitation", F.k3_excitation, F.k3_excitation_plain,
-         ("conv_e", "mean1", "rstd1", "scale1", "bias1", "new_inh", "inh", "gated",
-          "exc", "e_w", "e_w_b", "e_u", "e_u_b", "kappa", "gamma"),
+        ("k1_attention", F.k1_attention, F.k1_attention_plain, K1_ARGS,
+         "pathtracker_tpu/ops/int_fused.py:184", 1, 6),
+        ("k2_inhibition", F.k2_inhibition, F.k2_inhibition_plain, K2_ARGS,
+         "pathtracker_tpu/ops/int_fused.py:305", 1, 30),
+        ("k3_excitation", F.k3_excitation, F.k3_excitation_plain, K3_ARGS,
          "pathtracker_tpu/ops/int_fused.py:443", 2, 22),
     ]
     rows = []
@@ -510,11 +540,7 @@ def backward_kernel_phase(F) -> list[dict]:
     dgated = torch.randn((ROWS, C), generator=gen, device=dev).to(torch.bfloat16)
     datt = torch.randn((ROWS, C), generator=gen, device=dev)
     dnew = torch.randn((ROWS, C), generator=gen, device=dev)
-    k1 = ("exc", "att_x", "a_u", "a_u_b")
-    k2 = ("conv_i", "mean0", "rstd0", "scale0", "bias0", "inp", "gi_x", "inh",
-          "i_u", "i_u_b", "alpha", "mu")
-    k3 = ("conv_e", "mean1", "rstd1", "scale1", "bias1", "new_inh", "inh", "gated",
-          "exc", "e_w", "e_w_b", "e_u", "e_u_b", "kappa", "gamma")
+    k1, k2, k3 = K1_ARGS, K2_ARGS, K3_ARGS
     # (name, wrapper, plain, arguments, TPU kernel, products (recomputed,
     #  transposed and weight-gradient), f32 elementwise operations per
     #  element counted from the code, whether it is the training path's case)
@@ -584,6 +610,50 @@ def backward_kernel_phase(F) -> list[dict]:
     return rows
 
 
+def loop_shape_kernel_check(F) -> None:
+    """Every K1-K3 wrapper against its plain version at the training loop's
+    rows (train_InT.sh's batch), at phases 2 and 5's tolerances: the row
+    count sets each kernel's grid, its tail and the per-block partial sums
+    that finish_kernel adds."""
+    dev = torch.device(DEVICE)
+    rows = REFERENCE_BATCH * SIDE * SIDE
+    d = kernel_inputs(torch.Generator(device=dev).manual_seed(1), dev, rows)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    dgated = torch.randn((rows, C), generator=gen, device=dev).to(torch.bfloat16)
+    datt = torch.randn((rows, C), generator=gen, device=dev)
+    dnew = torch.randn((rows, C), generator=gen, device=dev)
+    k1, k2, k3 = ([d[k] for k in keys] for keys in (K1_ARGS, K2_ARGS, K3_ARGS))
+
+    def outputs(wrapper, plain, args):
+        got = wrapper(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        return ((got if isinstance(got, tuple) else (got,)),
+                (want if isinstance(want, tuple) else (want,)))
+
+    forward = [f"{name} {max_error(*outputs(wrapper, plain, args)):.3g}"
+               for name, wrapper, plain, args in (
+                   ("k1_attention", F.k1_attention, F.k1_attention_plain, k1),
+                   ("k2_inhibition", F.k2_inhibition, F.k2_inhibition_plain, k2),
+                   ("k3_excitation", F.k3_excitation, F.k3_excitation_plain, k3))]
+    backward = []
+    for name, wrapper, plain, args in (
+            ("k1_attention_bwd+datt", F.k1_attention_bwd, F.k1_attention_bwd_plain,
+             k1 + [dgated, datt]),
+            ("k1_attention_bwd", F.k1_attention_bwd, F.k1_attention_bwd_plain,
+             k1 + [dgated]),
+            ("k2_inhibition_bwd", F.k2_inhibition_bwd, F.k2_inhibition_bwd_plain,
+             k2 + [dnew]),
+            ("k3_excitation_bwd", F.k3_excitation_bwd, F.k3_excitation_bwd_plain,
+             k3 + [dnew])):
+        errors = backward_errors(name, rows, *outputs(wrapper, plain, args))
+        backward.append(f"{name} {' / '.join(f'{e:.3g}' for e in errors)}")
+    print(f"loop: kernels at {rows:,} rows (batch {REFERENCE_BATCH}) against their "
+          f"plain versions, held as phases 2 and 5: forward max_abs_err "
+          f"{', '.join(forward)}; backward row max_abs_err / reductions rel err / "
+          f"share past the tight tolerance {', '.join(backward)}", flush=True)
+
+
 def _loss_gradients(model, imgs) -> dict:
     """Gradients of sum(logit^2) (tests/test_int_fused.py's loss) by name;
     the model returns (logit, penalty) or the logits alone."""
@@ -644,7 +714,9 @@ def gradient_phase(serve, F, rendered) -> None:
             fail(f"fused and eager gradients differ by {gap:.4g} > {GRAD_ATOL}")
 
 
-def train_phase(serve, F, kernel_rows: list[dict], rendered) -> None:
+def train_phase(serve, F, kernel_rows: list[dict], rendered):
+    """The InT train step. Returns bare_steps(n): the seconds of n more bare
+    fused steps on one batch of REFERENCE_BATCH clips."""
     from pathtracker_torch.data.pathtracker import render_batch
     from pathtracker_torch.train.steps import (TRAIN_KEYS, make_optimizer,
                                                make_train_step)
@@ -723,21 +795,31 @@ def train_phase(serve, F, kernel_rows: list[dict], rendered) -> None:
           f"and copies, {sum(us for _, us in seen.values()) / 1e3:.2f} ms of device time "
           f"(torch.profiler); of them {ours}", flush=True)
 
-    # The reference batch as one step (printed, nothing held to it).
+    # Bare steps at the reference batch (printed, nothing held to them).
     clips, labels = render_batch(REQUESTS, REFERENCE_BATCH, TIMESTEPS,
                                  n_distractors=DISTRACTORS, dot_size=DOT_SIZE)
     big = (torch.from_numpy(clips).to(dev), torch.from_numpy(labels).to(dev))
+
+    def bare_steps(n: int) -> list[float]:
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            steps["fused"](*big)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return times
+
     steps["fused"](*big)  # warm at this shape
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
-    stats = steps["fused"](*big)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t
-    print(f"train fused, one batch-{REFERENCE_BATCH} step: {dt * 1e3:.2f} ms "
-          f"({REFERENCE_BATCH / dt:.1f} clips/s), peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, loss "
-          f"{float(stats['loss']):.4f}", flush=True)
+    big_times = bare_steps(REFERENCE_STEPS)
+    big_p50 = statistics.median(big_times)
+    print(f"train fused, {REFERENCE_STEPS} batch-{REFERENCE_BATCH} steps: "
+          f"{_ms(big_times)} ms, p50 {big_p50 * 1e3:.2f} ms "
+          f"({REFERENCE_BATCH / big_p50:.1f} clips/s), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return bare_steps
 
 
 def _bound(nbytes: int, f32_ops: float) -> tuple[float, str]:
@@ -1190,6 +1272,240 @@ def eval_phase(serve, F, kernel_rows: list[dict], serve_clips_per_s: float) -> N
               f"(first batch {clock.waits[0] * 1e3:.1f} ms)", flush=True)
 
 
+class _Tee:
+    """Standard output that is also kept, to read the loop's messages."""
+
+    def __init__(self, stream):
+        self.stream, self.text = stream, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.stream.write(s)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def _launcher_argv() -> list[str]:
+    """train_InT.sh's flags, as its command line passes them."""
+    import shlex
+
+    with open(os.path.join(ROOT, "train_InT.sh")) as f:
+        words = shlex.split(f.read().replace("\\\n", " "), comments=True)
+    return words[words.index("python") + 2:]
+
+
+def _loop_run(loop, argv, F, steps, timed=None):
+    """loop.main on ``argv`` with ``steps`` a capped epoch, its stdout kept;
+    launch counts from 0. ``timed``, {(module, name): list}, wraps those
+    functions to record the seconds of each call and its arguments."""
+    args = loop.parser.parse_args(argv)
+    for k in F.KERNELS:
+        k.launches = 0
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee), contextlib.ExitStack() as stack:
+        for (module, name), record in (timed or {}).items():
+            stack.enter_context(_wrapped(module, name, record))
+        result = loop.main(args, max_steps_per_epoch=steps)
+    torch.cuda.synchronize()
+    return args, result, "".join(tee.text), [k.launches for k in F.KERNELS]
+
+
+@contextlib.contextmanager
+def _wrapped(module, name, record):
+    fn = getattr(module, name)
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        record.append((time.perf_counter() - t, a))
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def _ms(seconds) -> str:
+    return "[" + ", ".join(f"{t * 1e3:.2f}" for t in seconds) + "]"
+
+
+def loop_phase(F, kernel_rows: list[dict], bare_steps) -> None:
+    """The training loop (python -m pathtracker_torch.train) with
+    train_InT.sh's flags on a rendered root of LOOP_CLIPS clips a split."""
+    from pathtracker_torch.data import registry
+    from pathtracker_torch.train import checkpoint as ckpt_lib
+    from pathtracker_torch.train import loop
+    from pathtracker_torch.train.torch_import import state_dict_from_jax
+
+    base = _launcher_argv()
+    if base[base.index("-b") + 1] != str(REFERENCE_BATCH):
+        fail(f"train_InT.sh's flags changed: {base}")
+    os.makedirs(BUILD, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp, _environ(
+            PATHTRACKER_DATA_ROOT=os.path.join(tmp, "data"),
+            PATHTRACKER_DOT_SIZE=str(DOT_SIZE),
+            PATHTRACKER_SYNTH_TRAIN=str(LOOP_CLIPS),
+            PATHTRACKER_SYNTH_TEST=str(LOOP_CLIPS)):
+        t0 = time.perf_counter()
+        registry.dataset_selector(DISTRACTORS, 1, TIMESTEPS)
+        print(f"loop: rendered {LOOP_CLIPS} + {LOOP_CLIPS} clips (T={TIMESTEPS}, "
+              f"dist {DISTRACTORS}, {DOT_SIZE}-pixel dots) in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        mixed = base + ["--bf16", "--auto-resume", "--ckpt", CHECKPOINT,
+                        "--results-dir", os.path.join(tmp, "mixed")]
+        val_batches = LOOP_CLIPS // REFERENCE_BATCH
+        want = ([2 * TIMESTEPS * LOOP_STEPS + TIMESTEPS * val_batches] * len(F.FORWARD_KERNELS)
+                + [TIMESTEPS * LOOP_STEPS] * len(F.BACKWARD_KERNELS))
+        loop_shape_kernel_check(F)
+
+        # The main path: counts from 0, one capped epoch from chainE.
+        saves, validations = [], []
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        args, result, out, launches = _loop_run(
+            loop, mixed + ["--epochs", "1"], F, LOOP_STEPS,
+            {(ckpt_lib, "save_checkpoint"): saves, (loop, "validate"): validations})
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        if launches != want:
+            fail(f"loop: kernel launches {launches}, expected {want}")
+        for row, n in zip(kernel_rows, launches):
+            row["launches_loop"] = n
+            row["launches"] += n
+        folder = result["results_folder"]
+        files = sorted(os.listdir(folder))
+        names = sorted(os.listdir(os.path.join(folder, "saved_models")))
+        if files != sorted(["hp_dict.npz", "saved_models", "train.npz", "val.npz",
+                            f"{args.name}.txt"]) or ROLLING_NAME not in names or not any(
+                n.startswith("model_val_acc_") for n in names):
+            fail(f"loop: artifacts {files} {names}")
+        train = np.load(os.path.join(folder, "train.npz"))
+        if len(train["loss"]) != LOOP_STEPS or not np.isfinite(train["loss"]).all():
+            fail(f"loop: train losses {train['loss']}")
+        rolling = os.path.join(folder, "saved_models", ROLLING_NAME)
+        back = state_dict_from_jax("InT", ckpt_lib.load_params(rolling))
+        if any(not torch.equal(back[k], v.cpu()) for k, v in result["params"].items()):
+            fail("loop: the rolling checkpoint differs from the weights main returned")
+        count = int(ckpt_lib.load_checkpoint(rolling)["extra"]["opt_state"]["0"]["count"])
+        if count != LOOP_STEPS:
+            fail(f"loop: the rolling checkpoint's Adam count is {count}, not {LOOP_STEPS}")
+        meters = result["meters"]
+        data_share = sum(meters["data_time"].history) / sum(meters["batch_time"].history)
+        rolling_s = [t for t, a in saves if a[0].endswith(ROLLING_NAME)]
+        balacc = result["val_log"]["balacc"][0]
+        card = card_line()
+        print(f"loop: main, {LOOP_STEPS} steps of {REFERENCE_BATCH} clips (T={TIMESTEPS}, "
+              f"bf16, fused) and {val_batches} val batches in {wall:.2f} s; kernel "
+              f"launches {launches} (K1, K2, K3 forward; backward); losses "
+              f"{' '.join(f'{v:.4f}' for v in train['loss'])}; artifacts {files} "
+              f"{names}; the rolling checkpoint bit-equal to the returned weights, "
+              f"Adam count {count} [{card}]", flush=True)
+        print(f"loop: per step batch_time {_ms(meters['batch_time'].history)} ms, of it "
+              f"data_time {_ms(meters['data_time'].history)} ms [{card}]", flush=True)
+        print(f"loop: data_time {data_share:.1%} of the run's steps; validation "
+              f"{sum(t for t, _ in validations):.3f} s; rolling checkpoint "
+              f"{os.path.getsize(rolling) / 1e3:.1f} kB written in "
+              f"{rolling_s[-1] * 1e3:.2f} ms; peak device memory {peak / 2**30:.2f} GiB; "
+              f"val balacc after the warm start {balacc:.2f}% (chainE's held-out "
+              f"69.08%, not gated) [{card}]", flush=True)
+
+        # Resume: one more epoch continues from the rolling checkpoint.
+        _, result, out, launches = _loop_run(loop, mixed + ["--epochs", "2"], F, LOOP_STEPS)
+        folder = result["results_folder"]
+        lengths = [len(np.load(os.path.join(folder, f"{n}.npz"))["loss"])
+                   for n in ("val", "train")]
+        count = int(ckpt_lib.load_checkpoint(rolling)["extra"]["opt_state"]["0"]["count"])
+        if ("optimizer state restored" not in out or "continuing from epoch 1" not in out
+                or lengths != [2, 2 * LOOP_STEPS] or count != 2 * LOOP_STEPS
+                or launches != want):
+            fail(f"loop: resume: val/train entries {lengths}, Adam count {count}, "
+                 f"launches {launches}")
+        for row, n in zip(kernel_rows, launches):
+            row["launches_loop"] += n
+            row["launches"] += n
+        print(f"loop: --auto-resume continued at epoch 1 with the optimizer state "
+              f"restored; val/train entries {lengths}, Adam count {count}; per step "
+              f"batch_time {_ms(result['meters']['batch_time'].history)} ms, of it "
+              f"data_time {_ms(result['meters']['data_time'].history)} ms [{card}]",
+              flush=True)
+
+        # A window of timed steps: WINDOW_EPOCHS capped epochs from chainE,
+        # each step's batch_time and data_time read from its log line, with
+        # bare steps of phase 7's model on either side.
+        bare = bare_steps(REFERENCE_STEPS)
+        _, result, out, launches = _loop_run(
+            loop, mixed[:-1] + [os.path.join(tmp, "window"), "--epochs",
+                                str(WINDOW_EPOCHS), "--print-freq", "1"], F, LOOP_STEPS)
+        if launches != [n * WINDOW_EPOCHS for n in want]:
+            fail(f"loop: window: kernel launches {launches}, expected "
+                 f"{WINDOW_EPOCHS} x {want}")
+        for row, n in zip(kernel_rows, launches):
+            row["launches_loop"] += n
+            row["launches"] += n
+        logged = [(int(i), float(t) * 1e3, float(d) * 1e3)
+                  for _, i, t, d in STEP_LINE.findall(out)]
+        if len(logged) != WINDOW_EPOCHS * LOOP_STEPS:
+            fail(f"loop: window: {len(logged)} step lines logged:\n{out[-2000:]}")
+        bare = [t * 1e3 for t in bare + bare_steps(REFERENCE_STEPS)]
+        bare_ms = statistics.median(bare)
+        within = [t for i, t, _ in logged if i > 0]  # steps whose batch was prefetched
+        starts = [t for i, t, _ in logged[1:] if i == 0]  # the loader restarted first
+        warm = statistics.median(within)
+        print(f"loop: window of {WINDOW_EPOCHS} capped epochs, batch_time "
+              f"{[round(t, 1) for _, t, _ in logged]} ms, of it data_time "
+              f"{[round(d, 1) for _, _, d in logged]} ms (the log's 1 ms steps); "
+              f"median of the {len(within)} steps inside an epoch {warm:.1f} ms "
+              f"(min {min(within):.1f}, max {max(within):.1f}) against bare "
+              f"batch-{REFERENCE_BATCH} steps of phase 7's step function before and "
+              f"after the run {[round(t, 1) for t in bare]} ms, median {bare_ms:.2f} ms "
+              f"({warm / bare_ms - 1:+.1%}); median of the "
+              f"{len(starts)} later epochs' first steps {statistics.median(starts):.1f} ms; "
+              f"the run's first step {logged[0][1]:.1f} ms [{card}]", flush=True)
+
+        # The CLI, stopped by SIGTERM after its first logged step.
+        cli = mixed[:-1] + [os.path.join(tmp, "cli"), "--epochs", "500"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-u", "-m", "pathtracker_torch.train",
+                                 *cli], cwd=ROOT, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        try:
+            lines = []
+            for line in proc.stdout:
+                lines.append(line)
+                if line.startswith("Epoch: ["):
+                    proc.send_signal(signal.SIGTERM)
+                    break
+            text = "".join(lines) + proc.communicate(timeout=300)[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        folder = os.path.join(tmp, "cli", f"{TIMESTEPS}_1_{DISTRACTORS}", args.name)
+        if proc.returncode != 0 or "terminated: logs + rolling checkpoint saved" not in text \
+                or not os.path.exists(os.path.join(folder, "saved_models", ROLLING_NAME)):
+            fail(f"loop: the CLI under SIGTERM exited {proc.returncode}:\n{text[-3000:]}")
+        print(f"loop: python -m pathtracker_torch.train stopped by SIGTERM after its "
+              f"first step: exit 0, rolling checkpoint written, "
+              f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
+        # train_InT.sh as written: f32, the eager cell, seeded init.
+        torch.cuda.reset_peak_memory_stats()
+        _, result, _, launches = _loop_run(
+            loop, base + ["--epochs", "1", "--results-dir", os.path.join(tmp, "f32")],
+            F, LOOP_STEPS)
+        if any(launches) or not np.isfinite(result["train_log"]["loss"]).all():
+            fail(f"loop f32: kernel launches {launches}, losses {result['train_log']['loss']}")
+        print(f"loop f32 (train_InT.sh as written): no kernel launched; steps "
+              f"{_ms(result['meters']['batch_time'].history)} ms (the first cold); "
+              f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"[{card}]", flush=True)
+
+
 def resource_lines(log: str) -> list[str]:
     """'kernel: N registers, S bytes smem, spills' from ptxas -v's output."""
     out, name, spill = [], None, ""
@@ -1249,7 +1565,7 @@ def main() -> int:
     serve_clips_per_s = serve_phase(serve, F, kernel_rows, rendered)
     kernel_rows += backward_kernel_phase(F)
     gradient_phase(serve, F, rendered)
-    train_phase(serve, F, kernel_rows, rendered)
+    bare_steps = train_phase(serve, F, kernel_rows, rendered)
     del rendered
     torch.cuda.empty_cache()
     correlation_rows = correlation_phase(Co, resources)
@@ -1259,6 +1575,10 @@ def main() -> int:
     rntsm_train_phase(serve, Co, correlation_rows)
     torch.cuda.empty_cache()
     eval_phase(serve, F, kernel_rows, serve_clips_per_s)
+    torch.cuda.empty_cache()
+    loop_phase(F, kernel_rows, bare_steps)
+    for row in correlation_rows:
+        row["launches_loop"] = 0
     kernel_rows += correlation_rows
     if any(row["launches"] <= 0 for row in kernel_rows):
         fail(f"a kernel was never launched on the main paths: {kernel_rows}")

@@ -24,7 +24,7 @@ from pathtracker_torch.models.registry import (MODEL_FAMILY, family,  # noqa: F4
                                                needs_coord_channels,
                                                model_selector as _build)
 from pathtracker_torch.train.checkpoint import load_params
-from pathtracker_torch.train.torch_import import state_dict_from_jax
+from pathtracker_torch.train.torch_import import state_dict_from_jax, to_jax_params
 
 SLOWFAST_ALPHA = 4  # slow pathway takes every 4th frame (reference utils/engine.py:52)
 
@@ -122,15 +122,18 @@ def prepare_data(imgs, target, args, device=None, disentangle_channels: bool = F
 
 
 def load_ckpt(model, model_path: str, strict: bool = True):
-    """Load a JAX-package checkpoint into ``model`` in place and return it
-    (reference utils/engine.py:258-269). ``strict=False`` (the mode the
-    reference viz script wanted) keeps the model's own values for
-    parameters the checkpoint lacks and ignores the ones it has extra."""
+    """Load a checkpoint into ``model`` in place and return it (reference
+    utils/engine.py:258-269): a JAX-package (or the port's own) msgpack
+    checkpoint, or a reference torch pickle, imported by layout.
+    ``strict=False`` (the mode the reference viz script wanted) keeps the
+    model's own values for parameters the checkpoint lacks and ignores the
+    ones it has extra."""
     from pathtracker_torch.models.tsm_resnet import TSMResNet
 
     name = "rntsm" if isinstance(model, TSMResNet) else "InT"
-    model.load_state_dict(state_dict_from_jax(name, load_params(model_path)),
-                          strict=strict)
+    params = load_params(model_path, template=lambda: to_jax_params(model.state_dict()),
+                         strict=strict)
+    model.load_state_dict(state_dict_from_jax(name, params), strict=strict)
     return model
 
 

@@ -34,6 +34,7 @@ from pathtracker_torch import engine
 from pathtracker_torch.data.pipeline import tfr_data_loader
 from pathtracker_torch.data.prepare import prepare_batch
 from pathtracker_torch.train import checkpoint as ckpt_lib
+from pathtracker_torch.train.loop import results_folder_for
 from pathtracker_torch.utils.metrics import bce_with_logits, eval_accuracy
 from pathtracker_torch.utils.opts import parser
 
@@ -190,15 +191,6 @@ def eval_best_model(directory, model, prep_gifs=3, batch_size=100,
     return results
 
 
-def _run_folder(args) -> str:
-    """A training run's folder, results/{length}_{speed}_{dist}[_flow]/{name}
-    (pathtracker_tpu/train/loop.py:98-102)."""
-    stem = f"{args.length}_{args.speed}_{args.dist}"
-    if args.optical_flow:
-        stem = f"{stem}_flow"
-    return os.path.join(args.results_dir, stem, str(args.name))
-
-
 def main(args=None):
     if args is None:
         args = parser.parse_args()
@@ -208,7 +200,7 @@ def main(args=None):
         # either layout is accepted.
         candidates = [results_folder]
         if args.length is not None:
-            candidates.insert(0, _run_folder(args))
+            candidates.insert(0, results_folder_for(args))
         directory = next((c for c in candidates
                           if os.path.exists(os.path.join(c, "val.npz"))), None)
         if directory is None:

@@ -16,10 +16,12 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from pathtracker_torch.data.prepare import prepare_batch
 from pathtracker_torch.engine import model_step
+from pathtracker_torch.train.torch_import import state_dict_from_jax, to_jax_params
 from pathtracker_torch.utils.metrics import (acc_scores, bce_with_logits,
                                              eval_accuracy)
 
@@ -192,6 +194,84 @@ class Optimizer:
         torch._foreach_add_(denom, self.EPS)
         torch._foreach_addcdiv_(self.params, self.mu, denom,
                                 value=-lr / (1.0 - self.B1 ** self.count))
+
+    # ---- the optimizer state in the JAX package's layout -------------------
+
+    def state_dict(self, names) -> dict:
+        """The state as ``flax.serialization.to_state_dict`` writes the optax
+        state of pathtracker_tpu/train/steps.py::make_optimizer for the same
+        options, so that each package resumes the other's checkpoints:
+
+            adam                {"0": {count, mu, nu}, "1": {} or {count}}
+            clip_grad           {"0": {}, "1": <adam>}
+            accum_steps > 1     {mini_step, gradient_step,
+                                 inner_opt_state: <above>, acc_grads, skip_state: {}}
+            ema                 {"0": <above>, "1": <EMA params>}
+
+        The "1" of adam holds the schedule's step count when the rate is a
+        schedule. Counts are int32 0-d arrays; ``mu``, ``nu``, ``acc_grads``
+        and the EMA are keyed and laid out like the JAX params
+        (``torch_import.to_jax_params`` of ``{name: tensor}``, ``names`` the
+        state_dict keys of the parameters in order)."""
+        def tree(tensors):
+            return to_jax_params(dict(zip(names, tensors, strict=True)))
+
+        count = np.asarray(self.count, np.int32)
+        out = {"0": {"count": count, "mu": tree(self.mu), "nu": tree(self.nu)},
+               "1": {"count": count} if callable(self.lr) else {}}
+        if self.clip_grad is not None:
+            out = {"0": {}, "1": out}
+        if self.acc is not None:
+            out = {"mini_step": np.asarray(self.mini_step, np.int32),
+                   "gradient_step": count, "inner_opt_state": out,
+                   "acc_grads": tree(self.acc), "skip_state": {}}
+        if self.ema is not None:
+            out = {"0": out, "1": tree(self.ema)}
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict, names, model_name: str) -> None:
+        """Restore a tree that ``state_dict`` (or the JAX package) wrote for
+        the same options and parameters of a ``model_name`` model. A tree of
+        other options or shapes raises KeyError, TypeError or ValueError and
+        changes nothing."""
+        _same_structure(self.state_dict(names), state, "opt_state")
+
+        def tensors(tree):
+            sd = state_dict_from_jax(model_name, tree)
+            return [sd[n] for n in names]
+
+        node, restore = state, []
+        if self.ema is not None:
+            node = state["0"]
+            restore.append((self.ema, tensors(state["1"])))
+        if self.acc is not None:
+            restore.append((self.acc, tensors(node["acc_grads"])))
+            mini_step = int(node["mini_step"])
+            node = node["inner_opt_state"]
+        if self.clip_grad is not None:
+            node = node["1"]
+        restore += [(self.mu, tensors(node["0"]["mu"])),
+                    (self.nu, tensors(node["0"]["nu"]))]
+        for dst, src in restore:
+            for d, x in zip(dst, src, strict=True):
+                d.copy_(x)  # onto the parameters' device
+        self.count = int(node["0"]["count"])
+        if self.acc is not None:
+            self.mini_step = mini_step
+
+
+def _same_structure(want, got, where: str) -> None:
+    """Raise unless ``got`` has the nested keys and leaf shapes of ``want``."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict):
+            raise TypeError(f"{where}: a {type(got).__name__} where a map belongs")
+        if set(want) != set(got):
+            raise KeyError(f"{where}: keys {sorted(got)}, expected {sorted(want)}")
+        for k in want:
+            _same_structure(want[k], got[k], f"{where}/{k}")
+    elif np.shape(want) != np.shape(got):
+        raise ValueError(f"{where}: shape {np.shape(got)}, expected {np.shape(want)}")
 
 
 def make_optimizer(lr: float, lr_steps=None, gamma: float = 0.1,

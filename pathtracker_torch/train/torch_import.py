@@ -115,6 +115,30 @@ _IMPORT_RULES = [
 ]
 
 
+def _jax_entry(key: str, value) -> tuple[str, np.ndarray]:
+    """One state_dict entry -> (JAX name, f32 numpy array in the JAX layout)."""
+    arr = value.detach().to("cpu", torch.float32).numpy()
+    name = None
+    for pattern, fn in _IMPORT_RULES:
+        m = pattern.match(key)
+        if m:
+            name = fn(m)
+            break
+    if name is None:
+        raise ValueError(f"no JAX counterpart for state_dict key {key!r}")
+    if key == "preproc.weight":
+        arr = arr[:, :, 0, 0, 0].T  # [C,3,1,1,1] -> [3,C]
+    elif key == "readout_dense.weight":
+        arr = arr.T  # [out,in] -> [in,out]
+    elif arr.ndim == 4 and arr.shape[2:] == (1, 1) and key != "target_conv.weight":
+        arr = arr[:, :, 0, 0].T  # [O,I,1,1] conv -> [I,O] matmul
+    elif arr.ndim == 4:
+        arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+    elif arr.ndim == 3 and arr.shape[1:] == (1, 1):
+        arr = arr[:, 0, 0]  # [C,1,1] -> [C]
+    return name, np.ascontiguousarray(arr)
+
+
 def to_jax_params(state_dict: dict) -> dict:
     """The port's ``state_dict`` (or tensors keyed like it, such as
     gradients) -> JAX params {name: f32 numpy array}, flat for the InT
@@ -122,29 +146,114 @@ def to_jax_params(state_dict: dict) -> dict:
     inverse of ``export_reference_state_dict``."""
     if looks_like_tsm_resnet_state_dict(state_dict):
         return import_tsm_resnet_state_dict(state_dict)
-    out = {}
-    for key, value in state_dict.items():
-        arr = value.detach().to("cpu", torch.float32).numpy()
-        name = None
-        for pattern, fn in _IMPORT_RULES:
-            m = pattern.match(key)
-            if m:
-                name = fn(m)
+    return dict(_jax_entry(key, value) for key, value in state_dict.items())
+
+
+# --- reference torch checkpoints onto a JAX-layout template ------------------
+
+# FFhGRU's wrapper-level BatchNorm3d (reference ffhgru_hierarchy.py:186) is
+# defined and never called; its keys have no counterpart and are dropped.
+_UNUSED_REFERENCE_KEYS = re.compile(r"^bn\.(weight|bias)$")
+_BN_STATS = re.compile(r"\.(running_mean|running_var|num_batches_tracked)$")
+
+
+def looks_like_torch_state_dict(params) -> bool:
+    """Reference state_dicts use dotted module paths; JAX params do not."""
+    return isinstance(params, dict) and any(
+        isinstance(k, str) and "." in k for k in params)
+
+
+def looks_like_slowfast_state_dict(state_dict) -> bool:
+    return isinstance(state_dict, dict) and any(
+        isinstance(k, str) and "pathway" in k.split("module.")[-1]
+        for k in state_dict)
+
+
+def _fill(template: dict, entries, what: str, strict: bool,
+          head_prefixes: tuple = ()) -> dict:
+    """Copy ``template`` (dict structure only) and fill it from ``entries``,
+    (state_dict key, path into the template or None, JAX-layout array), as
+    pathtracker_tpu/train/torch_import.py::_import_by_paths does: a key with
+    no path, or a path the template lacks, raises; so does a shape that
+    differs from the template's, except under a head (``head_prefixes``: a
+    1000-class ImageNet fc on a 1-unit head is skipped, as the reference
+    replaced heads after loading); under ``strict`` every non-head template
+    parameter must be filled."""
+    def copy(tree):
+        return {k: copy(v) if isinstance(v, dict) else v for k, v in tree.items()}
+
+    out, filled, unmapped = copy(template), set(), []
+    for key, path, arr in entries:
+        node, tnode = out, template
+        for part in (path or ())[:-1]:
+            if not isinstance(tnode, dict) or part not in tnode:
+                path = None
                 break
-        if name is None:
-            raise ValueError(f"no JAX counterpart for state_dict key {key!r}")
-        if key == "preproc.weight":
-            arr = arr[:, :, 0, 0, 0].T  # [C,3,1,1,1] -> [3,C]
-        elif key == "readout_dense.weight":
-            arr = arr.T  # [out,in] -> [in,out]
-        elif arr.ndim == 4 and arr.shape[2:] == (1, 1) and key != "target_conv.weight":
-            arr = arr[:, :, 0, 0].T  # [O,I,1,1] conv -> [I,O] matmul
-        elif arr.ndim == 4:
-            arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
-        elif arr.ndim == 3 and arr.shape[1:] == (1, 1):
-            arr = arr[:, 0, 0]  # [C,1,1] -> [C]
-        out[name] = np.ascontiguousarray(arr)
+            node, tnode = node[part], tnode[part]
+        if not path or not isinstance(tnode, dict) or path[-1] not in tnode:
+            unmapped.append(key)
+            continue
+        shape = tuple(np.shape(tnode[path[-1]]))
+        if arr.shape != shape:
+            if path[0].startswith(head_prefixes):
+                continue
+            raise ValueError(f"cannot map {key} of shape {arr.shape} onto "
+                             f"parameter {'/'.join(path)} of shape {shape}")
+        node[path[-1]] = arr
+        filled.add("/".join(path))
+    if unmapped:
+        raise ValueError(f"{what} checkpoint contains keys with no counterpart "
+                         f"here: {sorted(unmapped)}")
+    if strict:
+        def missing(tree, prefix):
+            for k, v in tree.items():
+                p = f"{prefix}/{k}" if prefix else k
+                if isinstance(v, dict):
+                    yield from missing(v, p)
+                elif p not in filled and not p.startswith(head_prefixes):
+                    yield p
+        absent = sorted(missing(template, ""))
+        if absent:
+            raise ValueError(f"{what} checkpoint is missing parameters: {absent} "
+                             "(pass strict=False to keep the template's values)")
     return out
+
+
+def _strip(key: str) -> str:
+    return key[len("module."):] if key.startswith("module.") else key
+
+
+def import_reference_state_dict(state_dict: dict, template: dict,
+                                strict: bool = True) -> dict:
+    """A reference InT-family torch ``state_dict`` (DataParallel's
+    ``module.`` prefix stripped) onto ``template``, flat JAX params: the
+    port's modules are the reference layout, so this is ``to_jax_params``
+    key by key, checked against the template as
+    pathtracker_tpu/train/torch_import.py:113-152 does."""
+    def entries():
+        for key, value in state_dict.items():
+            key = _strip(key)
+            try:
+                name, arr = _jax_entry(key, torch.as_tensor(value))
+            except ValueError:
+                name, arr = None, None
+            if (name is None or name not in template) and _UNUSED_REFERENCE_KEYS.match(key):
+                continue
+            yield key, (name,) if name else None, arr
+
+    return _fill(template, entries(), "torch", strict)
+
+
+def jax_leaves(tree: dict, prefix: str = ""):
+    """(path, leaf) of a JAX params tree in the order jax.tree_util flattens
+    it (sorted keys), the path as ``jax.tree_util.keystr`` writes it:
+    ``['layer1_0']['conv1']['kernel']``."""
+    for key in sorted(tree):
+        path = f"{prefix}[{key!r}]"
+        if isinstance(tree[key], dict):
+            yield from jax_leaves(tree[key], path)
+        else:
+            yield path, tree[key]
 
 
 def state_dict_from_jax(model_name: str, params: dict) -> dict:
@@ -237,33 +346,57 @@ _TSM_IMPORT_RULES = [
     (re.compile(r"^flow_refinement\.conv(\d)\.([14])\.(weight|bias)$"),
      lambda m: ("flow_refinement",
                 f"{'dw' if m.group(2) == '1' else 'pw'}{m.group(1)}", m.group(3))),
-    (re.compile(r"^fc1\.weight$"), lambda m: ("fc1_kernel",)),
-    (re.compile(r"^fc1\.bias$"), lambda m: ("fc1_bias",)),
+    # fc: a plain torchvision ResNet's Linear head
+    (re.compile(r"^fc1?\.weight$"), lambda m: ("fc1_kernel",)),
+    (re.compile(r"^fc1?\.bias$"), lambda m: ("fc1_bias",)),
 ]
 _BN_LEAF = {"weight": "bn_scale", "bias": "bn_bias"}
 
 
-def import_tsm_resnet_state_dict(state_dict: dict) -> dict:
-    """The port's TSMResNet ``state_dict`` (or tensors keyed like it) ->
-    the nested JAX tree of f32 numpy arrays: the inverse of
-    ``export_tsm_resnet_state_dict``."""
+def _tsm_entry(key: str, value) -> tuple[tuple | None, np.ndarray]:
+    """One resnet_TSM / torchvision ResNet entry -> (path in the nested JAX
+    tree or None, f32 numpy array in the JAX layout)."""
+    arr = torch.as_tensor(value).detach().to("cpu", torch.float32).numpy()
+    path = None
+    for pattern, fn in _TSM_IMPORT_RULES:
+        m = pattern.match(key)
+        if m:
+            path = fn(m)
+            path = path[:-1] + (_BN_LEAF.get(path[-1], path[-1]),)
+            break
+    if arr.ndim == 4:
+        arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+    elif arr.ndim == 3:
+        arr = arr[..., 0].T  # Conv1d head [cls,C,1] -> [C,cls]
+    elif arr.ndim == 2:
+        arr = arr.T  # Linear head [cls,C] -> [C,cls]
+    return path, np.ascontiguousarray(arr)
+
+
+def import_tsm_resnet_state_dict(state_dict: dict, template: dict | None = None,
+                                 strict: bool = True) -> dict:
+    """A TSMResNet ``state_dict`` (the port's, the reference resnet_TSM's, or
+    tensors keyed like them) -> the nested JAX tree of f32 numpy arrays: the
+    inverse of ``export_tsm_resnet_state_dict``.
+
+    With ``template`` (a nested JAX tree), as
+    pathtracker_tpu/train/torch_import.py::import_tsm_resnet_state_dict:
+    ``module.`` stripped, BN running statistics dropped (the norms use batch
+    statistics), a plain torchvision ResNet's ``fc`` that does not fit the
+    head skipped; use ``strict=False`` for ImageNet trunks, which lack the
+    MotionSqueeze and the head."""
+    if template is not None:
+        entries = ((key, *_tsm_entry(key, value))
+                   for key, value in ((_strip(k), v) for k, v in state_dict.items())
+                   if not _BN_STATS.search(key))
+        return _fill(template, entries, "TSM/resnet", strict, head_prefixes=("fc1_",))
     out = {}
     for key, value in state_dict.items():
-        arr = value.detach().to("cpu", torch.float32).numpy()
-        path = None
-        for pattern, fn in _TSM_IMPORT_RULES:
-            m = pattern.match(key)
-            if m:
-                path = fn(m)
-                break
+        path, arr = _tsm_entry(key, value)
         if path is None:
             raise ValueError(f"no TSMResNet counterpart for state_dict key {key!r}")
-        if arr.ndim == 4:
-            arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
-        elif arr.ndim == 3:
-            arr = arr[..., 0].T  # Conv1d head [cls,C,1] -> [C,cls]
         node = out
         for part in path[:-1]:
             node = node.setdefault(part, {})
-        node[_BN_LEAF.get(path[-1], path[-1])] = np.ascontiguousarray(arr)
+        node[path[-1]] = arr
     return out

@@ -558,3 +558,73 @@ def test_cuda_evaluate_model_runs_the_fused_kernels(cuda, tmp_path, monkeypatch)
                 assert records[clip.tobytes()] == label
                 seen += 1
         assert seen == len(records) == 2 * batch
+
+
+@pytest.mark.gpu
+def test_cuda_rolling_checkpoint_reads_back_bit_equal_onto_the_card(cuda, tmp_path):
+    """Weights and optimizer state (EMA and accumulation included) written
+    from CUDA tensors after two fused bf16 train steps read back bit-equal
+    into a fresh model and optimizer on the card."""
+    import numpy as np
+
+    from pathtracker_torch import engine
+    from pathtracker_torch.train import checkpoint as ckpt
+    from pathtracker_torch.train import loop
+    from pathtracker_torch.train.steps import make_optimizer, make_train_step
+
+    def build(seed):
+        model = InT(dimensions=C, timesteps=4, kernel_size=3, dtype="bfloat16",
+                    seed=seed, device=cuda)
+        names, params = loop._trained(model)
+        opt = make_optimizer(1e-3, ema=0.9, accum_steps=2, clip_grad=1.0).init(params)
+        return model, names, opt
+
+    model, names, opt = build(0)
+    step = make_train_step(model, "InT", opt)
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        step(rng.integers(0, 256, (2, 4, 32, 32, 3), dtype=np.uint8),
+             np.array([0, 1], np.uint8))
+    path = str(tmp_path / "roll.pth.tar")
+    ckpt.save_checkpoint(path, model.state_dict(), epoch=0,
+                         extra=loop._opt_state_extra(opt, names))
+    other, _, fresh = build(1)
+    engine.load_ckpt(other, path)
+    fresh.load_state_dict(ckpt.load_checkpoint(path)["extra"]["opt_state"], names, "InT")
+    for (k, a), b in zip(model.state_dict().items(), other.state_dict().values()):
+        assert b.is_cuda and torch.equal(a, b), k
+    for a, b in zip(opt.mu + opt.nu + opt.acc + opt.ema, fresh.mu + fresh.nu + fresh.acc + fresh.ema):
+        assert b.is_cuda and torch.equal(a, b)
+    assert (fresh.count, fresh.mini_step) == (opt.count, opt.mini_step) == (1, 1)
+
+
+@pytest.mark.gpu
+def test_cuda_auto_resume_restores_the_moments_onto_the_card(cuda, tmp_path, monkeypatch):
+    """python -m pathtracker_torch.train's main on the card, --bf16 at 32
+    channels, relaunched with --auto-resume: the optimizer the second run
+    starts from holds the first run's moments, bit-equal and on the card,
+    and the Adam count continues."""
+    from pathtracker_torch.train import loop
+
+    monkeypatch.setenv("PATHTRACKER_DATA_ROOT", str(tmp_path / "data"))
+    monkeypatch.setenv("PATHTRACKER_SYNTH_TRAIN", "8")
+    monkeypatch.setenv("PATHTRACKER_SYNTH_TEST", "8")
+    starts, optimizers = [], []
+    real = loop.make_train_step
+
+    def recorded(model, name, optimizer, **kw):
+        starts.append((optimizer.count, [t.clone() for t in optimizer.mu + optimizer.nu]))
+        optimizers.append(optimizer)
+        return real(model, name, optimizer, **kw)
+
+    monkeypatch.setattr(loop, "make_train_step", recorded)
+    argv = ["--model", "InT", "--name", "r", "--length", "4", "--speed", "1", "--dist",
+            "1", "-b", "4", "-k", "3", "--bf16", "--auto-resume", "--results-dir",
+            str(tmp_path / "out")]
+    loop.main(loop.parser.parse_args(argv + ["--epochs", "1"]), max_steps_per_epoch=2)
+    first = optimizers[-1]
+    loop.main(loop.parser.parse_args(argv + ["--epochs", "2"]), max_steps_per_epoch=2)
+    count, moments = starts[-1]
+    assert count == first.count == 2 and optimizers[-1].count == 4
+    for a, b in zip(first.mu + first.nu, moments):
+        assert b.is_cuda and torch.equal(a, b)

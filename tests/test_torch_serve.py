@@ -103,10 +103,16 @@ def test_serving_chaine_matches_jax_bf16():
 
 
 def test_torch_pickle_checkpoints_wait_for_training(tmp_path):
+    """The training slice reads the reference's torch pickles, with
+    weights_only=True; a serving model built from one needs the template
+    of engine.load_ckpt (tests/test_torch_checkpoint.py)."""
     path = tmp_path / "ref.pth.tar"
-    torch.save({"state_dict": {}}, path)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tckpt.load_checkpoint(str(path))
+    torch.save({"state_dict": {"unit1.w": torch.ones(2, 1, 1)}}, path)
+    state = tckpt.load_checkpoint(str(path))
+    assert set(state) == {"state_dict"} and torch.equal(
+        state["state_dict"]["unit1.w"], torch.ones(2, 1, 1))
+    with pytest.raises(ValueError, match="template"):
+        tckpt.load_params(str(path))
 
 
 def test_registry_and_engine_surface():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive pathtracker_torch's serving, training, eval and training-loop paths
-on one CUDA card (an H100) and hold every CUDA kernel on those paths against
-its plain PyTorch version.
+"""Drive pathtracker_torch's serving, training, eval, training-loop and
+resident-window paths on one CUDA card (an H100) and hold every CUDA kernel
+on those paths against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -94,7 +94,35 @@ Phases, printed in order; any failure exits non-zero before the last line:
      its first logged step: exit 0, the terminated line, the rolling
      checkpoint; (d) train_InT.sh as written (f32, the eager cell, seeded
      init): no kernel launch, finite losses, step time and peak memory;
- 13. one JSON line naming every kernel with its numbers (launches summed over
+ 13. the resident path (--device-data, --fused-steps K): (a) render 1,440 +
+     360 clips (dist 14, speed 1, T=64, 2-pixel dots) with
+     make_synthetic_dataset in parallel processes and upload them with
+     load_resident (seconds, bytes); (b) chainE's InT (bf16, fused) at batch
+     180 through make_resident_train_step with windows of 4: a window
+     captured under cuDNN's default algorithms against eager steps, held at
+     ten times the gap between two eager runs; then, under
+     cudnn.deterministic, the first window (warm-up, capture, replay; each
+     K1-K3 wrapper launched twice a window's count) and a second replay,
+     each against 4 eager steps of make_train_step from the same weights on
+     the batches the window gathers (bit-identity printed, held as stated),
+     and --accum-steps 2 over two windows of 3, the second at phase 1; (c)
+     one replay under torch.profiler: K x 2T launches of each K1-K3 forward
+     kernel and K x T of each backward one; (d) python -m
+     pathtracker_torch.train with train_InT.sh's flags, --epochs 2 --bf16
+     --device-data --fused-steps 4: exit 0, 16 finite losses, 2 val
+     entries, the rolling checkpoint's Adam count 16; (e) warm-step medians
+     over at least 24 steps, clips/s, the device's idle share (profiled busy
+     time against the unprofiled median) and peak memory of the streaming
+     loop (steps inside an epoch; each epoch's first apart) and of resident
+     K = 1, 4, 8 over 15-step epochs that leave train_InT.sh's tails, with
+     each graph's capture seconds; (f) train_InT.sh as written (f32, the
+     eager cell) at batch 180, T=64 under the remat policies 'full', 'conv'
+     and 'conv_gates': gradients against each other, step medians over 5
+     warm steps, peak memory; (g) rntsm (batch 4, T=8, f32, remat) through
+     a window of 2 against eager steps, counts from 0: the three correlation
+     wrappers held against their plain versions at the shapes the window
+     gave them, and each one's launches in a replay;
+ 14. one JSON line naming every kernel with its numbers (launches summed over
      the main paths, with each path's count beside).
 The last line is {"ok": true, "device": {...}}. It needs a CUDA card and
 the repository beside it; without either it exits non-zero and prints no
@@ -238,6 +266,49 @@ LOOP_CLIPS, LOOP_STEPS, WINDOW_EPOCHS = 2 * REFERENCE_BATCH, 2, 6
 STEP_LINE = re.compile(r"^Epoch: \[(\d+)\]\[(\d+)/\d+\].*?Time: ([\d.]+) .*?Data: ([\d.]+)",
                        re.M)
 ROLLING_NAME = "model_last_epoch_checkpoint.pth.tar"
+
+# The resident phase: train_InT.sh's shape (batch 180, T=64) on a root of 8
+# batches to train on and 2 to validate, rendered in parallel, held on the
+# card (~354 MB of uint8). Windows of RESIDENT_K steps against eager steps.
+# Each mode of RESIDENT_KS is timed over epochs of RESIDENT_EPOCH steps (the
+# 1,440 clips and 1,260 of them again), so that K=4 and K=8 end an epoch with
+# train_InT.sh's tails: its 20,000 clips make 111 steps of 180, 3 past a
+# multiple of 4 and 7 past one of 8. One epoch warms a mode up (the capture
+# of its window and of its tail), then at least RESIDENT_TIMED steps are
+# timed.
+RESIDENT_TRAIN, RESIDENT_VAL = 8 * REFERENCE_BATCH, 2 * REFERENCE_BATCH
+RESIDENT_K, RESIDENT_KS, RESIDENT_TIMED, RESIDENT_EPOCH = 4, (1, 4, 8), 24, 15
+RENDER_WORKERS = 8
+# Graph windows vs eager steps from the same weights, optimizer state and
+# batches: bit-identical unless cuDNN's weight-gradient algorithm is
+# nondeterministic; then Adam's sign-like update can move an entry whose
+# gradient sits at rounding distance from zero by up to 2*lr a step, so every
+# entry is held within 2*lr*steps and all but WINDOW_SHARE of them within
+# lr/100, the moments all but that share within 1e-3 of their largest entry,
+# and the losses within WINDOW_LOSS_ATOL. A rate baked into the graph at
+# capture moves nearly every entry by a tenth of lr or more.
+WINDOW_SHARE, WINDOW_LOSS_ATOL = 0.01, 1e-4
+# These comparisons run under torch.backends.cudnn.deterministic: with
+# cuDNN's default choice two eager runs of the same steps from chainE's
+# weights already differ (a weight-gradient algorithm sums in a varying
+# order, and the 64-step recurrence carries a rounding difference to O(1)
+# gradient differences within a few steps). The timed graphs and the CLI's
+# are captured under the default choice; a window of those is held against
+# eager steps: its largest loss gap and relative moment gap at SPREAD_FACTOR
+# times those between two eager runs of the same steps, or of SPREAD_FLOORS
+# where larger (two eager runs on an H100 measured a loss gap of 1.19e-3 by the fourth
+# step), its first loss, from equal weights, within WINDOW_LOSS_ATOL, and
+# every weight within 2*lr*steps. That catches a graph that computes
+# something else (a NaN, an algorithm that misbehaves under capture), not a
+# rounding-level difference.
+SPREAD_FACTOR, SPREAD_FLOORS = 10, (1e-3, 1e-2)
+# The remat policies on train_InT.sh as written (f32, the eager cell):
+# gradients held at the JAX package's bound between policies
+# (tests/test_int_parity.py:189-217), bit-identity printed (under
+# cudnn.deterministic, as the window comparisons).
+REMAT_STEPS, REMAT_ATOL, REMAT_RTOL = 5, 1e-5, 1e-4
+# rntsm through a resident window, at a depth that keeps the phase short.
+TSM_RESIDENT_CLIPS, TSM_RESIDENT_T, TSM_RESIDENT_K = 8, 8, 2
 
 
 def fail(msg: str):
@@ -1334,9 +1405,10 @@ def _ms(seconds) -> str:
     return "[" + ", ".join(f"{t * 1e3:.2f}" for t in seconds) + "]"
 
 
-def loop_phase(F, kernel_rows: list[dict], bare_steps) -> None:
+def loop_phase(F, kernel_rows: list[dict], bare_steps) -> float:
     """The training loop (python -m pathtracker_torch.train) with
-    train_InT.sh's flags on a rendered root of LOOP_CLIPS clips a split."""
+    train_InT.sh's flags on a rendered root of LOOP_CLIPS clips a split; the
+    median ms of the window's steps inside an epoch."""
     from pathtracker_torch.data import registry
     from pathtracker_torch.train import checkpoint as ckpt_lib
     from pathtracker_torch.train import loop
@@ -1504,6 +1576,580 @@ def loop_phase(F, kernel_rows: list[dict], bare_steps) -> None:
               f"{_ms(result['meters']['batch_time'].history)} ms (the first cold); "
               f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
               f"[{card}]", flush=True)
+    return warm
+
+
+def _render_shard(folder: str, split: str, count: int, seed: int) -> str:
+    """One shard of ``count`` clips of ``split`` (the other split empty),
+    rendered by make_synthetic_dataset in its own folder; the shard's path."""
+    from pathtracker_torch.data.pathtracker import make_synthetic_dataset
+
+    make_synthetic_dataset(folder, n_train=count if split == "train" else 0,
+                           n_test=count if split == "test" else 0,
+                           timesteps=TIMESTEPS, n_distractors=DISTRACTORS, speed=1,
+                           shards=1, seed=seed)
+    return os.path.join(folder, f"{split}-00000-of-00001.tfrecord")
+
+
+def render_root(root: str, tmp: str) -> float:
+    """RESIDENT_TRAIN + RESIDENT_VAL clips (dist 14, speed 1, T=64,
+    2-pixel dots), a reference batch a shard, one process a shard; the
+    seconds it took."""
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    jobs = ([("train", i) for i in range(RESIDENT_TRAIN // REFERENCE_BATCH)]
+            + [("test", i) for i in range(RESIDENT_VAL // REFERENCE_BATCH)])
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(RENDER_WORKERS, mp_context=get_context("spawn")) as pool:
+        futures = [pool.submit(_render_shard, os.path.join(tmp, f"{split}{i}"), split,
+                               REFERENCE_BATCH, 1000 + n)
+                   for n, (split, i) in enumerate(jobs)]
+        paths = [f.result() for f in futures]
+    for (split, i), path in zip(jobs, paths):
+        total = sum(1 for s, _ in jobs if s == split)
+        os.replace(path, os.path.join(root, f"{split}-{i:05d}-of-{total:05d}.tfrecord"))
+    return time.perf_counter() - t0
+
+
+def window_account(models, opts, lr: float, steps: int) -> tuple[str, bool]:
+    """Two models and optimizers after the same steps: an account,
+    bit-identity first, and whether it holds WINDOW_SHARE's rule."""
+    same, worst, share, moment = True, 0.0, 0.0, 0.0
+    for a, b in zip(models[0].parameters(), models[1].parameters()):
+        gap = (a - b).abs()
+        same = same and bool(torch.equal(a, b))
+        worst = max(worst, gap.max().item())
+        share = max(share, (gap > lr / 100).float().mean().item())
+    for m0, m1 in zip(opts[0].mu + opts[0].nu, opts[1].mu + opts[1].nu):
+        same = same and bool(torch.equal(m0, m1))
+        rel = (m0 - m1).abs() / m1.abs().max().clamp_min(1e-30)
+        moment = max(moment, (rel > 1e-3).float().mean().item())
+    counts = [(o.count, o.mini_step) for o in opts]
+    account = (f"{'bit-identical' if same else 'not bit-identical'}: largest weight gap "
+               f"{worst:.3g} (held <= 2*lr*steps = {2 * lr * steps:.3g}), largest share "
+               f"of a parameter's entries past lr/100 {share:.3g}, of a moment's past "
+               f"1e-3 of its largest {moment:.3g} (held <= {WINDOW_SHARE}); optimizer "
+               f"(count, mini_step) {counts[0]} and {counts[1]}")
+    held = (worst <= 2 * lr * steps and share <= WINDOW_SHARE and moment <= WINDOW_SHARE
+            and counts[0] == counts[1])
+    return account, held
+
+
+def window_gap(models, opts, lr: float, steps: int) -> str:
+    account, held = window_account(models, opts, lr, steps)
+    if not held:
+        fail(f"resident windows and eager steps differ: {account}")
+    return account
+
+
+def windows_against_eager(pair, clips, labels, windows: int, start: int = 0,
+                          kernels=()) -> tuple[list, list]:
+    """Run ``windows`` windows of the graphed step, the first at step
+    ``start``, and the same steps eagerly on the batches the windows gather;
+    the (window, eager) losses, held within WINDOW_LOSS_ATOL, and the
+    launches of each of ``kernels``' wrappers in the graphed calls alone."""
+    graphed, eager = pair
+    losses, done, launches = [], start, [0] * len(kernels)
+    for _ in range(windows):
+        before = [k.launches for k in kernels]
+        stats = graphed(clips, labels)
+        launches = [n + k.launches - b for n, k, b in zip(launches, kernels, before)]
+        for j, loss in enumerate(np.atleast_1d(stats["loss"])):
+            idx = graphed.indices(done + j)
+            want = eager(clips.index_select(0, idx), labels.index_select(0, idx))
+            losses.append((float(loss), float(want["loss"])))
+        done += len(np.atleast_1d(stats["loss"]))
+    if max(abs(a - b) for a, b in losses) > WINDOW_LOSS_ATOL:
+        fail(f"resident window losses against eager steps: {losses}")
+    return losses, launches
+
+
+def _instance(kernel_name: str) -> str:
+    """A kernel's name with its template arguments as resource_lines writes
+    them ('corr_bwd_kernel<0, 1, 15>'); the bare name where it has none."""
+    short = _short(kernel_name)
+    match = re.search(re.escape(short) + r"<([^<>]*)>", kernel_name)
+    if not match:
+        return short
+    args = [re.sub(r"^\(\w+\)", "", a.strip()) for a in match.group(1).split(",")]
+    return f"{short}<{', '.join({'true': '1', 'false': '0'}.get(a, a) for a in args)}>"
+
+
+def profile_window(fn, calls: int = 1) -> tuple[dict, dict, float, float]:
+    """``calls`` calls of ``fn`` under torch.profiler (device activity
+    only): ({kernel: count}, {kernel with its template arguments: count},
+    the union of device busy ms, the calls' wall ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    counts, instances, spans = {}, {}, []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            counts[_short(e.name)] = counts.get(_short(e.name), 0) + 1
+            instances[_instance(e.name)] = instances.get(_instance(e.name), 0) + 1
+            spans.append((e.time_range.start, e.time_range.end))
+    busy, reach = 0.0, None
+    for start, end in sorted(spans):
+        if reach is None or start > reach:
+            busy += end - start
+            reach = end
+        elif end > reach:
+            busy += end - reach
+            reach = end
+    return counts, instances, busy / 1e3, wall
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+@contextlib.contextmanager
+def _launch_shapes(native, seen: dict):
+    """Record {kernel function: {(tensor shapes, integer arguments)}} of
+    every native launch made inside."""
+    launch = native.launch
+
+    def recording(name, fn, tensors, ints, stream):
+        seen.setdefault(fn, set()).add((tuple(tuple(t.shape) for t in tensors), tuple(ints)))
+        return launch(name, fn, tensors, ints, stream)
+
+    native.launch = recording
+    try:
+        yield
+    finally:
+        native.launch = launch
+
+
+def _moment_gap(opts) -> float:
+    """The largest gap between two optimizers' Adam moments, relative to
+    the moment's largest entry."""
+    return max(((m0 - m1).abs().max() / m1.abs().max().clamp_min(1e-30)).item()
+               for m0, m1 in zip(opts[0].mu + opts[0].nu, opts[1].mu + opts[1].nu))
+
+
+def default_algorithms_window(serve, dev, clips, labels) -> str:
+    """Phase 13 (b): a window of RESIDENT_K steps by graph replay captured
+    under cuDNN's default algorithms (as the timed graphs and the CLI's
+    are) against eager steps, held at SPREAD_FACTOR times the gap between
+    two eager runs of the same steps."""
+    from pathtracker_torch.train.steps import make_optimizer, make_train_step
+
+    k = RESIDENT_K
+    models, opts, (graphed, eager) = _resident_pair(serve, dev, int(labels.shape[0]), k)
+    third = serve.build(ckpt=CHECKPOINT, length=TIMESTEPS, bf16=True, device=dev).train()
+    third_opt = make_optimizer(LEARNING_RATE)
+    other = make_train_step(third, "InT", third_opt)
+    stats = graphed(clips, labels)
+    losses = []
+    for j, loss in enumerate(stats["loss"]):
+        idx = graphed.indices(j)
+        batch = clips.index_select(0, idx), labels.index_select(0, idx)
+        losses.append((float(loss), float(eager(*batch)["loss"]), float(other(*batch)["loss"])))
+    account, _ = window_account(models, opts, LEARNING_RATE, k)
+    got = (max(abs(g - e) for g, e, _ in losses), _moment_gap(opts))
+    spread = (max(abs(e - o) for _, e, o in losses), _moment_gap([opts[1], third_opt]))
+    bounds = [SPREAD_FACTOR * max(x, floor) for x, floor in zip(spread, SPREAD_FLOORS)]
+    text = (f"a window of {k} steps captured under cuDNN's default algorithms against "
+            f"{k} eager steps: losses (window, eager, a second eager run) "
+            f"{[tuple(round(x, 6) for x in t) for t in losses]}; largest loss gap and "
+            f"relative moment gap {[f'{x:.3g}' for x in got]}, between the two eager runs "
+            f"{[f'{x:.3g}' for x in spread]} (held <= {SPREAD_FACTOR} x each, at least "
+            f"{SPREAD_FLOORS}: {[f'{x:.3g}' for x in bounds]}; the first loss within "
+            f"{WINDOW_LOSS_ATOL}); window against eager {account}")
+    if (any(not x <= bound for x, bound in zip(got, bounds))
+            or abs(losses[0][0] - losses[0][1]) > WINDOW_LOSS_ATOL
+            or not all(np.isfinite(t).all() for t in losses)
+            or any(not torch.isfinite(p).all() for p in models[0].parameters())
+            or max((a - b).abs().max().item() for a, b in zip(
+                models[0].parameters(), models[1].parameters())) > 2 * LEARNING_RATE * k):
+        fail(f"resident: {text}")
+    return text
+
+
+def _resident_pair(serve, dev, n_clips, fused_steps, length=None, batch=None,
+                   model="InT", **opt_kw):
+    """The graphed resident step and the eager step on two copies of one
+    model (chainE's weights for InT, the seeded init for rntsm); T=64 and
+    batch 180 unless given."""
+    length, batch = length or TIMESTEPS, batch or REFERENCE_BATCH
+    from pathtracker_torch.data.resident import make_resident_train_step
+    from pathtracker_torch.train.steps import make_optimizer, make_train_step
+
+    if model == "InT":
+        kw = dict(ckpt=CHECKPOINT, length=length, bf16=True, device=dev)
+    else:
+        kw = dict(model="rntsm", length=length, remat_blocks=True, device=dev)
+    models = [serve.build(**kw).train() for _ in range(2)]
+    opts = [make_optimizer(LEARNING_RATE, **opt_kw) for _ in range(2)]
+    graphed = make_resident_train_step(models[0], model, opts[0], n_clips=n_clips,
+                                       batch_size=batch, fused_steps=fused_steps)
+    return models, opts, (graphed, make_train_step(models[1], model, opts[1]))
+
+
+def resident_windows(serve, F, kernel_rows: list[dict], clips, labels, dev, card) -> None:
+    """Phase 13 (b) and (c): windows of RESIDENT_K steps by graph replay
+    against eager steps (the main path, its launch counts from 0), a replay
+    under the profiler, and --accum-steps 2 across windows of 3."""
+    import gc
+
+    t2 = 2 * TIMESTEPS
+
+    # (b) The main path: a window of RESIDENT_K steps by graph replay,
+    # counts from 0, against eager steps; then a second replay.
+    models, opts, pair = _resident_pair(serve, dev, int(labels.shape[0]), RESIDENT_K)
+    per_window = [RESIDENT_K * t2] * 3 + [RESIDENT_K * TIMESTEPS] * 3
+    for k in F.KERNELS:
+        k.launches = 0
+    for i in range(2):
+        losses, launches = windows_against_eager(pair, clips, labels, 1,
+                                                 start=RESIDENT_K * i, kernels=F.KERNELS)
+        if i == 0:  # the warm-up and the capture
+            if launches != [2 * e for e in per_window]:
+                fail(f"resident: wrapper launches over the warm-up and capture "
+                     f"{launches}, expected twice {per_window}")
+            for row, count in zip(kernel_rows, launches):
+                row["launches_resident"] = count
+                row["launches"] += count
+        elif any(launches):
+            fail(f"resident: a replay called the wrappers {launches}")
+        account = window_gap(models, opts, LEARNING_RATE, RESIDENT_K * (i + 1))
+        print(f"resident: window {i + 1} of {RESIDENT_K} steps (batch {REFERENCE_BATCH}, "
+              f"T={TIMESTEPS}, bf16, fused, chainE) by graph replay against {RESIDENT_K} "
+              f"eager steps on the same batches (cudnn.deterministic): losses (window, "
+              f"eager) {[(round(x, 6), round(y, 6)) for x, y in losses]} (held within "
+              f"{WINDOW_LOSS_ATOL}); wrapper launches {launches}; weights and moments "
+              f"{account}", flush=True)
+
+    # (c) Launches per window, from the profiler over one replay.
+    counts, _, busy, wall = profile_window(lambda: pair[0](clips, labels))
+    seen = [counts.get(name, 0) for name in INT_CELL_KERNELS[:6]]
+    if seen != per_window or counts.get("finish_kernel", 0) != 3 * RESIDENT_K * TIMESTEPS:
+        fail(f"resident: one replay launched {counts}, expected {per_window} of "
+             f"{INT_CELL_KERNELS[:6]}")
+    for row, count in zip(kernel_rows, seen):
+        row["launches_per_window"] = count
+    print(f"resident: one replay of the {RESIDENT_K}-step graph launched "
+          f"{dict(zip(INT_CELL_KERNELS[:6], seen))} and "
+          f"{counts.get('finish_kernel')} finish_kernel (torch.profiler sees into the "
+          f"replay): K x 2T forward and K x T backward a kernel; "
+          f"{sum(counts.values())} device activities, busy {busy:.2f} of "
+          f"{wall:.2f} ms under the profiler [{card}]", flush=True)
+    del models, opts, pair
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b') Accumulation over 2 across windows of 3: phases 0 then 1.
+    models, opts, pair = _resident_pair(serve, dev, int(labels.shape[0]), 3, accum_steps=2)
+    losses, _ = windows_against_eager(pair, clips, labels, 2)
+    account = window_gap(models, opts, LEARNING_RATE, 6)
+    print(f"resident: --accum-steps 2, two windows of 3 (the second starts at phase "
+          f"1; graphs {sorted(pair[0].graphs)}): losses within "
+          f"{max(abs(x - y) for x, y in losses):.3g} of eager; {account}", flush=True)
+    del models, opts, pair
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def resident_times(serve, loader_steps, clips, labels, dev, loop_ms: float,
+                   card: str) -> None:
+    """Phase 13 (e): warm-step medians by mode, the streaming loop's first
+    (``loader_steps()`` yields its device batches, an epoch a pass), then
+    resident windows of each K over epochs of RESIDENT_EPOCH steps."""
+    import gc
+
+    from pathtracker_torch.data.resident import make_resident_train_step
+    from pathtracker_torch.train.steps import make_optimizer, make_train_step
+
+    b = REFERENCE_BATCH
+
+    def build():
+        return serve.build(ckpt=CHECKPOINT, length=TIMESTEPS, bf16=True, device=dev).train()
+
+    # The streaming loop: steps inside an epoch, and each epoch's first
+    # (the loader's restart) apart.
+    model = build()
+    step = make_train_step(model, "InT", make_optimizer(LEARNING_RATE))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    within, firsts = [], []
+    while len(within) < RESIDENT_TIMED:
+        end = time.perf_counter()
+        for i, batch in enumerate(loader_steps()):
+            step(*batch)
+            (firsts if i == 0 else within).append(time.perf_counter() - end)
+            end = time.perf_counter()
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+    batches = [batch for batch, _ in zip(loader_steps(), range(3))]
+    _, _, busy, _ = profile_window(lambda: [step(*x) for x in batches])
+    med = statistics.median(within)
+    print(f"resident times, streaming (the loop's path, batch {b}, T={TIMESTEPS}, bf16, "
+          f"fused): in-epoch warm-step median {med * 1e3:.2f} ms over {len(within)} steps "
+          f"(min {min(within) * 1e3:.2f}, max {max(within) * 1e3:.2f}), "
+          f"{b / med:.1f} clips/s; phase 12's in-epoch median from the loop's log "
+          f"{loop_ms:.1f} ms; each epoch's first step (the loader's restart) "
+          f"{_ms(firsts)} ms, the run's first cold; device busy {busy / 3:.1f} ms a step "
+          f"(torch.profiler over 3 steps), idle {1 - busy / 3 / (med * 1e3):.1%} of the "
+          f"unprofiled median; peak device memory {peak / 2**30:.2f} GiB allocated, "
+          f"{reserved / 2**30:.2f} GiB reserved [{card}]", flush=True)
+    del model, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Resident windows over epochs of RESIDENT_EPOCH steps, the clips and a
+    # share of them again.
+    n = RESIDENT_EPOCH * b
+    data = torch.cat([clips, clips[:n - clips.shape[0]]])
+    target = torch.cat([labels, labels[:n - labels.shape[0]]])
+    for k in RESIDENT_KS:
+        model = build()
+        step = make_resident_train_step(model, "InT", make_optimizer(LEARNING_RATE),
+                                        n_clips=n, batch_size=b, fused_steps=k)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_reserved()
+        captures, times, done = [], [], 0
+        while done < RESIDENT_EPOCH + RESIDENT_TIMED or done % RESIDENT_EPOCH:
+            graphs = len(step.graphs)
+            t0 = time.perf_counter()
+            got = len(np.atleast_1d(step(data, target)["loss"]))
+            seconds = time.perf_counter() - t0
+            if len(step.graphs) > graphs:
+                captures.append((got, seconds))
+            elif done >= RESIDENT_EPOCH:
+                times += [seconds / got] * got
+            done += got
+        peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+        held = torch.cuda.memory_reserved()
+        calls = max(1, 4 // k)
+        _, _, busy, _ = profile_window(lambda: step(data, target), calls)
+        med = statistics.median(times)
+        profiled = calls * min(k, RESIDENT_EPOCH)
+        print(f"resident times, K={k} (epochs of {RESIDENT_EPOCH} steps; graphs "
+              f"{sorted(step.graphs)}): warm-step median {med * 1e3:.2f} ms over "
+              f"{len(times)} steps (min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}), "
+              f"{b / med:.1f} clips/s; capture and warm-up of each graph "
+              f"{[f'{s - g * med:.2f}' for g, s in captures]} s (the first window of each "
+              f"length less that many warm steps); device busy {busy / profiled:.1f} ms a "
+              f"step (torch.profiler over {profiled} steps), idle "
+              f"{1 - busy / profiled / (med * 1e3):.1%} of the unprofiled median; peak "
+              f"device memory {peak / 2**30:.2f} GiB allocated, {reserved / 2**30:.2f} GiB "
+              f"reserved (held after the run {held / 2**30:.2f}, before it "
+              f"{before / 2**30:.2f}), all the run's graphs and "
+              f"{(data.numel() + clips.numel()) / 1e9:.2f} GB of resident clips included "
+              f"[{card}]", flush=True)
+        del model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    del data, target
+
+
+def remat_phase(serve, clips, labels, dev, card: str) -> None:
+    """Phase 13 (f): train_InT.sh as written (f32, the eager cell) under
+    each remat policy: gradients, then interleaved steps."""
+    from pathtracker_torch.data.prepare import prepare_batch
+    from pathtracker_torch.engine import model_step
+    from pathtracker_torch.train.steps import make_optimizer, make_train_step
+    from pathtracker_torch.utils.metrics import bce_with_logits
+
+    b = REFERENCE_BATCH
+    model = serve.build(ckpt=CHECKPOINT, length=TIMESTEPS, device=dev).train()
+    if model.use_fused or not model.remat:
+        fail("the f32 InT ran the fused cell or no remat")
+    policies = ("full", "conv", "conv_gates")
+    batches = [(clips[i * b:(i + 1) * b], labels[i * b:(i + 1) * b]) for i in range(2)]
+    imgs, target = prepare_batch(*batches[0])
+    params = [p for p in model.parameters() if p.requires_grad]
+    grads = {}
+    with _deterministic_cudnn():
+        for policy in policies:
+            model.remat_policy = policy
+            loss = bce_with_logits(model_step(model, imgs, "InT")[0], target)
+            grads[policy] = [torch.zeros_like(p) if g is None else g for p, g in zip(
+                params, torch.autograd.grad(loss, params, allow_unused=True))]
+    same = all(torch.equal(a, c) for policy in policies[1:]
+               for a, c in zip(grads[policy], grads["full"]))
+    worst = max(((a - c).abs() - REMAT_RTOL * c.abs()).max().item()
+                for policy in policies[1:] for a, c in zip(grads[policy], grads["full"]))
+    print(f"remat f32, batch {b}, T={TIMESTEPS}: gradients under 'conv' and "
+          f"'conv_gates' against 'full' (cudnn.deterministic) "
+          f"{'bit-identical' if same else 'not bit-identical'}"
+          f" (largest |gap| - {REMAT_RTOL}|g| {worst:.3g}; held <= {REMAT_ATOL})",
+          flush=True)
+    if worst > REMAT_ATOL:
+        fail("the remat policies' gradients differ")
+    del grads, imgs, target
+    step = make_train_step(model, "InT", make_optimizer(LEARNING_RATE))
+    times, peaks = {p: [] for p in policies}, {p: 0 for p in policies}
+    for i in range(REMAT_STEPS + 1):
+        for policy in (policies if i % 2 == 0 else policies[::-1]):
+            model.remat_policy = policy
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            step(*batches[i % 2])
+            torch.cuda.synchronize()
+            if i > 0:  # the first round warms each policy
+                times[policy].append(time.perf_counter() - t0)
+            peaks[policy] = max(peaks[policy], torch.cuda.max_memory_allocated())
+    for policy in policies:
+        print(f"remat f32 '{policy}': step median {statistics.median(times[policy]) * 1e3:.2f}"
+              f" ms over {REMAT_STEPS} warm steps ({_ms(times[policy])} ms); peak device "
+              f"memory {peaks[policy] / 2**30:.2f} GiB [{card}]", flush=True)
+
+
+def rntsm_resident(serve, Co, correlation_rows: list[dict], dev, card: str) -> None:
+    """Phase 13 (g): an rntsm window of TSM_RESIDENT_K steps by graph replay
+    (its own main path: counts from 0), against eager steps; the three
+    correlation wrappers held against their plain versions at the shapes
+    the window gave them; each kernel's launches in one replay."""
+    from pathtracker_torch.data.pathtracker import render_batch
+    from pathtracker_torch.ops import _native
+
+    rc, rl = render_batch(300, TSM_RESIDENT_CLIPS, TSM_RESIDENT_T, n_distractors=DISTRACTORS,
+                          dot_size=DOT_SIZE)
+    rc, rl = torch.from_numpy(rc).to(dev), torch.from_numpy(rl).to(dev)
+    k = TSM_RESIDENT_K
+    models, opts, pair = _resident_pair(serve, dev, TSM_RESIDENT_CLIPS, k,
+                                        length=TSM_RESIDENT_T, batch=TSM_TRAIN_BATCH,
+                                        model="rntsm")
+    shapes = {}
+    for kernel in Co.KERNELS:
+        kernel.launches = 0
+    with _deterministic_cudnn(), _launch_shapes(_native, shapes):
+        losses, launches = windows_against_eager(pair, rc, rl, 1, kernels=Co.KERNELS)
+    account = window_gap(models, opts, LEARNING_RATE, k)
+    _, instances, _, _ = profile_window(lambda: pair[0](rc, rl))
+    per_window = [instances.get(CORR_INSTANCES[row["name"]], 0) for row in correlation_rows]
+    if launches != [2 * k] * 3 or per_window != [k] * 3:
+        fail(f"rntsm resident: wrapper launches {launches} in the graphed window, one "
+             f"replay {instances}")
+    # The shapes the window gave the three wrappers: one (N, H, W, C, patch,
+    # dilation) for all, f1 (the forward's first input) [N, H, W, C].
+    seen = {args for fn in CORR_INSTANCES for _, args in shapes.get(fn, ())}
+    if len(seen) != 1 or set(shapes) & set(CORR_INSTANCES) != set(CORR_INSTANCES):
+        fail(f"rntsm resident: the correlation launches took {shapes}")
+    n, h, w, c, patch, dilation = seen.pop()
+    errs = correlation_errors(Co, *correlation_inputs(Co, n, h, w, c, patch, 5), patch,
+                              dilation)
+    for row, count, launched, err in zip(correlation_rows, per_window, launches, errs):
+        row["launches_resident"] = launched
+        row["launches"] += launched
+        row["launches_per_window"] = count
+        row["resident_shape"] = dict(n=n, max_abs_err=err)
+    print(f"rntsm resident: a window of {k} steps (batch {TSM_TRAIN_BATCH}, "
+          f"T={TSM_RESIDENT_T}, f32, remat) by graph replay against eager steps "
+          f"(cudnn.deterministic): losses "
+          f"{[(round(x, 6), round(y, 6)) for x, y in losses]}; {account}; wrapper launches "
+          f"in the graphed window {launches} (warm-up and capture); one replay ran "
+          f"{dict(zip(CORR_INSTANCES.values(), per_window))} (torch.profiler's names); "
+          f"at the window's shape N={n} {h}x{w}x{c} patch {patch} dilation {dilation}, "
+          f"max_abs_err against the plain versions fwd {errs[0]:.3g}, bwd_f1 {errs[1]:.3g}, "
+          f"bwd_f2 {errs[2]:.3g} (held: {CORR_ATOL_FWD} forward, {CORR_ATOL_BWD} "
+          f"backward) [{card}]", flush=True)
+
+
+def resident_phase(serve, F, Co, kernel_rows: list[dict], correlation_rows: list[dict],
+                   loop_ms: float) -> None:
+    """--device-data and --fused-steps K: the resident dataset, each window
+    one CUDA graph, against eager steps; the CLI; step times by mode; the
+    eager cell's remat policies; an rntsm window."""
+    import gc
+
+    from pathtracker_torch.data import registry
+    from pathtracker_torch.data.pipeline import tfr_data_loader
+    from pathtracker_torch.data.resident import load_resident
+    from pathtracker_torch.train import checkpoint as ckpt_lib
+    from pathtracker_torch.train.loop import device_prefetch
+
+    dev = torch.device(DEVICE)
+    card = card_line()
+    os.makedirs(BUILD, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp, _environ(
+            PATHTRACKER_DATA_ROOT=os.path.join(tmp, "data"),
+            PATHTRACKER_DOT_SIZE=str(DOT_SIZE),
+            PATHTRACKER_SYNTH_TRAIN=str(RESIDENT_TRAIN),
+            PATHTRACKER_SYNTH_TEST=str(RESIDENT_VAL)):
+        # (a) The data, uploaded once.
+        root = registry._config_dir(DISTRACTORS, 1, TIMESTEPS)
+        render_s = render_root(root, os.path.join(tmp, "shards"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clips, labels = load_resident(os.path.join(root, "train-*"), TIMESTEPS, device=dev)
+        val = load_resident(os.path.join(root, "test-*"), TIMESTEPS, device=dev)
+        torch.cuda.synchronize()
+        upload = time.perf_counter() - t0
+        n = int(labels.shape[0])
+        nbytes = sum(x.numel() * x.element_size() for x in (clips, labels, *val))
+        if n != RESIDENT_TRAIN or int(val[1].shape[0]) != RESIDENT_VAL:
+            fail(f"resident: loaded {n} + {int(val[1].shape[0])} clips")
+        print(f"resident: rendered {RESIDENT_TRAIN} + {RESIDENT_VAL} clips (T={TIMESTEPS}, "
+              f"dist {DISTRACTORS}, {DOT_SIZE}-pixel dots) with make_synthetic_dataset in "
+              f"{RENDER_WORKERS} processes in {render_s:.2f} s; read and uploaded "
+              f"{nbytes / 1e6:.1f} MB in {upload:.2f} s", flush=True)
+
+        # (b) A graph captured under cuDNN's default algorithms.
+        print(f"resident: {default_algorithms_window(serve, dev, clips, labels)}", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (b), (c) Graphs against eager steps, exactly.
+        with _deterministic_cudnn():
+            resident_windows(serve, F, kernel_rows, clips, labels, dev, card)
+
+        # (d) The CLI: train_InT.sh's flags, 2 epochs, --bf16 --device-data
+        # --fused-steps 4.
+        argv = _launcher_argv() + ["--epochs", "2", "--bf16", "--device-data",
+                                   "--fused-steps", str(RESIDENT_K), "--results-dir",
+                                   os.path.join(tmp, "cli")]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "pathtracker_torch.train", *argv],
+                              cwd=ROOT, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        folder = os.path.join(tmp, "cli", f"{argv[argv.index('--length') + 1]}_1_"
+                              f"{DISTRACTORS}", argv[argv.index("--name") + 1])
+        rolling = os.path.join(folder, "saved_models", ROLLING_NAME)
+        if proc.returncode != 0 or not os.path.exists(rolling):
+            fail(f"resident CLI exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                 f"{proc.stderr[-3000:]}")
+        losses = np.load(os.path.join(folder, "train.npz"))["loss"]
+        vals = len(np.load(os.path.join(folder, "val.npz"))["loss"])
+        count = int(ckpt_lib.load_checkpoint(rolling)["extra"]["opt_state"]["0"]["count"])
+        spe = RESIDENT_TRAIN // REFERENCE_BATCH
+        if (len(losses), vals, count) != (2 * spe, 2, 2 * spe) or not np.isfinite(losses).all():
+            fail(f"resident CLI: losses {losses}, {vals} val entries, Adam count {count}")
+        print(f"resident: python -m pathtracker_torch.train (train_InT.sh's flags, "
+              f"--epochs 2 --bf16 --device-data --fused-steps {RESIDENT_K}) exit 0 in "
+              f"{cli_s:.1f} s: {len(losses)} finite losses, {vals} val entries, the "
+              f"rolling checkpoint's Adam count {count} [{card}]", flush=True)
+
+        # (e) Step times by mode.
+        loader = tfr_data_loader(data_dir=os.path.join(root, "train-*"),
+                                 batch_size=REFERENCE_BATCH, drop_remainder=True,
+                                 timesteps=TIMESTEPS, seed=0)
+        resident_times(serve, lambda: device_prefetch(iter(loader), dev), clips, labels, dev,
+                       loop_ms, card)
+        del loader
+        # (f) The remat policies.
+        remat_phase(serve, clips, labels, dev, card)
+        del clips, labels, val
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (g) rntsm: a window of 2 steps through the correlation kernels.
+    rntsm_resident(serve, Co, correlation_rows, dev, card)
 
 
 def resource_lines(log: str) -> list[str]:
@@ -1576,9 +2222,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     eval_phase(serve, F, kernel_rows, serve_clips_per_s)
     torch.cuda.empty_cache()
-    loop_phase(F, kernel_rows, bare_steps)
+    loop_ms = loop_phase(F, kernel_rows, bare_steps)
+    torch.cuda.empty_cache()
     for row in correlation_rows:
         row["launches_loop"] = 0
+    resident_phase(serve, F, Co, kernel_rows, correlation_rows, loop_ms)
     kernel_rows += correlation_rows
     if any(row["launches"] <= 0 for row in kernel_rows):
         fail(f"a kernel was never launched on the main paths: {kernel_rows}")

@@ -25,14 +25,17 @@ statistics and the readout stay f32. A pure-bf16 carry never leaves the
 chance plateau (int_circuit.py:237-245), so there is none.
 
 Training: when a gradient is asked for, each step runs through
-``_RecomputedStep``, which saves only the step's inputs (the f32 carry, the
-three hoisted slices, the cell parameters) and re-runs the step in backward,
-so a step's residuals live only while its own backward runs
-(int_circuit.py:102-125 for the fused cell, ``remat_policy='full'``
-:383-384 for the eager one). The fused cell always recomputes; the eager
-cell does unless ``remat=False``. The kernels' backward halves are
-hand-written too (ops/int_fused.py); the convs' backward is cuDNN's and the
-BN statistics' is autograd's.
+``_RecomputedStep``, which saves the step's inputs (the f32 carry, the three
+hoisted slices, the cell parameters) and the outputs ``remat_policy`` keeps,
+and re-runs the step in backward, so a step's other residuals live only while
+its own backward runs. The fused cell keeps nothing more and recomputes the
+whole step (int_circuit.py:102-125); the eager cell follows the JAX
+package's policies (:218-225, :373-384): ``'conv'`` (the default) keeps the
+step's two conv outputs and the recompute replays only the elementwise and
+gate chain, ``'conv_gates'`` also keeps the four gate matmul outputs,
+``'full'`` keeps nothing more, and ``remat=False`` stores everything. The
+kernels' backward halves are hand-written too (ops/int_fused.py); the convs'
+backward is cuDNN's and the BN statistics' is autograd's.
 
 Two cells, chosen from the config alone before anything launches:
   * the eager cell (``_int_cell_step``): every config, f32 or mixed bf16 —
@@ -49,7 +52,10 @@ Two cells, chosen from the config alone before anything launches:
 
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as TF
 from torch import nn
 from torch.autograd.function import once_differentiable
 
@@ -62,19 +68,97 @@ from pathtracker_torch.ops.layers import batch_norm, conv2d, dense, softplus
 
 _NL = {"softplus": softplus, "tanh": torch.tanh}
 _LESIONS = ("alpha", "mu", "gamma", "kappa")
+# What each remat policy of the eager cell keeps of a step besides its
+# inputs, by the JAX package's checkpoint names (int_circuit.py:157-170).
+_REMAT_KEEPS = {"full": frozenset(), "conv": frozenset({"cell_conv"}),
+                "conv_gates": frozenset({"cell_conv", "cell_gate"})}
 
 
-def _int_cell_step(cp, xt, carry, *, use_attention, no_inh, act, mxu):
+def _conv_vjp(dy, a, b, needs, padding, groups):
+    """(da, db) of ``F.conv2d(a, b, padding=padding, groups=groups)``
+    (stride 1) from its output's cotangent ``dy``: the call autograd's
+    ConvolutionBackward makes, after the explicit pad 'same' takes for an
+    even kernel."""
+    k = b.shape[-1]
+    if padding != "same" or b.shape[-2] != k:
+        raise ValueError(f"a saved conv takes square kernels, padding 'same': {padding!r}")
+    left, extra = (k - 1) // 2, (k - 1) % 2
+    a_pad = TF.pad(a, (0, extra, 0, extra)) if extra else a
+    da, db, _ = torch.ops.aten.convolution_backward(
+        dy, a_pad, b, None, [1, 1], [left, left], [1, 1], False, [0, 0],
+        groups, [needs[0], needs[1], False])
+    if extra and da is not None:
+        da = da[..., :a.shape[-2], :a.shape[-1]]
+    return da, db
+
+
+def _matmul_vjp(dy, a, b, needs):
+    """(da, db) of ``a @ b``, ``a`` [..., n] and ``b`` [n, m] row-major, as
+    autograd's MmBackward computes them on the rows of ``a``."""
+    rows, dy2 = a.reshape(-1, a.shape[-1]), dy.reshape(-1, dy.shape[-1])
+    da = dy2.mm(b.t()).view(a.shape) if needs[0] else None
+    db = rows.t().mm(dy2) if needs[1] else None
+    return da, db
+
+
+class _Kept(torch.autograd.Function):
+    """Stands for ``op(a, b)`` in a step's recompute: returns the output
+    saved in the step's forward and pulls its cotangent back through ``op``'s
+    VJP, ``vjp(dy, a, b, needs)``."""
+
+    @staticmethod
+    def forward(ctx, vjp, y, a, b):
+        ctx.vjp = vjp
+        ctx.save_for_backward(a, b)
+        return y.view_as(y)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        a, b = ctx.saved_tensors
+        return (None, None, *ctx.vjp(dy, a, b, ctx.needs_input_grad[2:]))
+
+
+class _Tape:
+    """The products a remat policy keeps of one step (``keep``, of the
+    names 'cell_conv' and 'cell_gate'): recorded when ``saved`` is None (the
+    step's forward), else handed back in order (its recompute in backward)."""
+
+    def __init__(self, keep, saved=None):
+        self.keep = keep
+        self.recorded = []
+        self._saved = None if saved is None else iter(saved)
+
+    def op(self, name, fn, vjp):
+        """``fn`` (``F.conv2d`` or ``torch.matmul``) as the tape's step calls it."""
+        if name not in self.keep:
+            return fn
+
+        def call(a, b, **kw):
+            if self._saved is None:
+                y = fn(a, b, **kw)
+                self.recorded.append(y)
+                return y
+            return _Kept.apply(functools.partial(vjp, **kw), next(self._saved), a, b)
+        return call
+
+
+def _int_cell_step(cp, xt, carry, *, use_attention, no_inh, act, mxu, tape=None):
     """One rCell step on [B,H,W,C] tensors (int_circuit.py:150-194).
-    Returns ((new_inh, new_exc), att)."""
+    Returns ((new_inh, new_exc), att). ``tape`` records or hands back the
+    conv and gate products a remat policy keeps."""
     inp, att_x, gi_x = xt
     inh, exc = carry
+    conv, matmul = TF.conv2d, torch.matmul
+    if tape is not None:
+        conv = tape.op("cell_conv", conv, _conv_vjp)
+        matmul = tape.op("cell_gate", matmul, _matmul_vjp)
 
     def fdense(z, kern, bias):
-        return dense(z, kern, bias, mxu_dtype=mxu)
+        return dense(z, kern, bias, mxu_dtype=mxu, matmul=matmul)
 
     def fconv(z, kern):
-        y = conv2d(z, kern, mxu_dtype=mxu, keep_mxu_dtype=True)
+        y = conv2d(z, kern, mxu_dtype=mxu, keep_mxu_dtype=True, conv=conv)
         return y.float() if mxu is not None else y
 
     if use_attention:
@@ -135,40 +219,46 @@ def _int_cell_step_fused(cp, xt, carry, shape):
 
 
 class _RecomputedStep(torch.autograd.Function):
-    """``fn(*args) -> tuple of tensors`` that saves only ``args`` and, in
-    backward, runs ``fn`` again with grad enabled and pulls the cotangents
-    through it (int_circuit.py:109-125). Non-tensor arguments pass through
-    and get no gradient."""
+    """``fn(*args, tape=...) -> tuple of tensors`` that saves ``args`` and
+    the products ``keep`` names (``_Tape``), and in backward runs ``fn``
+    again with grad enabled, the kept products handed back, and pulls the
+    cotangents through it (int_circuit.py:109-125, :373-384). Non-tensor
+    arguments pass through and get no gradient."""
 
     @staticmethod
-    def forward(ctx, fn, *args):
-        ctx.fn = fn
+    def forward(ctx, fn, keep, *args):
+        tape = _Tape(keep)
+        out = fn(*args, tape=tape)
+        ctx.fn, ctx.keep = fn, keep
         ctx.is_tensor = [isinstance(a, torch.Tensor) for a in args]
         ctx.consts = [a for a in args if not isinstance(a, torch.Tensor)]
-        ctx.save_for_backward(*(a for a in args if isinstance(a, torch.Tensor)))
+        ctx.n_kept = len(tape.recorded)
+        ctx.save_for_backward(*(a for a in args if isinstance(a, torch.Tensor)),
+                              *tape.recorded)
         ctx.set_materialize_grads(False)
-        return fn(*args)
+        return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, *cotangents):
-        saved, consts = iter(ctx.saved_tensors), iter(ctx.consts)
+        n_args = len(ctx.saved_tensors) - ctx.n_kept
+        saved, consts = iter(ctx.saved_tensors[:n_args]), iter(ctx.consts)
         args = [next(saved).detach().requires_grad_(need) if is_tensor
                 else next(consts)
-                for is_tensor, need in zip(ctx.is_tensor, ctx.needs_input_grad[1:])]
+                for is_tensor, need in zip(ctx.is_tensor, ctx.needs_input_grad[2:])]
         wanted = [is_tensor and a.requires_grad
                   for a, is_tensor in zip(args, ctx.is_tensor)]
         leaves = [a for a, want in zip(args, wanted) if want]
         with torch.enable_grad():
-            outs = ctx.fn(*args)
+            outs = ctx.fn(*args, tape=_Tape(ctx.keep, ctx.saved_tensors[n_args:]))
         pairs = [(o, d) for o, d in zip(outs, cotangents)
                  if d is not None and o.requires_grad]
         if not (pairs and leaves):
-            return (None,) * (1 + len(args))
+            return (None,) * (2 + len(args))
         grads = iter(torch.autograd.grad(
             [o for o, _ in pairs], leaves, [d for _, d in pairs],
             allow_unused=True))
-        return (None, *(next(grads) if want else None for want in wanted))
+        return (None, None, *(next(grads) if want else None for want in wanted))
 
 
 class RCell(nn.Module):
@@ -236,9 +326,13 @@ class InT(nn.Module):
     ``dtype='float32'`` runs everything in f32 (reference parity);
     ``'bfloat16'`` is the mixed path: bf16 operands into the convs and 1x1
     matmuls with f32 accumulation, f32 carry, BN statistics and readout.
-    ``remat`` (the eager cell only; the fused cell always does): recompute
-    each step in backward and keep only the carry, as the JAX package's
-    ``remat_policy='full'``; gradients are the same either way.
+    ``remat`` and ``remat_policy`` (the eager cell only; the fused cell
+    always recomputes the whole step, as in JAX): with ``remat`` each step
+    is recomputed in backward from its inputs and what the policy keeps, as
+    the JAX package's policies (int_circuit.py:218-225): ``'conv'`` the two
+    k x k conv outputs, ``'conv_gates'`` also the four gate matmul outputs,
+    ``'full'`` nothing more. ``remat=False`` stores everything. Gradients
+    are the same under all of them.
     Parameters are drawn from ``torch.Generator().manual_seed(seed)`` and
     placed on ``device`` (``None`` means cuda).
     """
@@ -249,19 +343,23 @@ class InT(nn.Module):
                  lesion_mu: bool = False, lesion_gamma: bool = False,
                  lesion_kappa: bool = False, nl: str = "softplus",
                  fused: bool = True, remat: bool = True,
-                 dtype: str = "float32", seed: int = 0, device=None):
+                 remat_policy: str = "conv", dtype: str = "float32",
+                 seed: int = 0, device=None):
         super().__init__()
         if nl not in _NL:
             raise ValueError(f"nl must be one of {sorted(_NL)}, got {nl!r}")
         if dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype must be 'float32' or 'bfloat16', got {dtype!r}")
+        if remat_policy not in _REMAT_KEEPS:
+            raise ValueError(f"remat_policy must be one of {sorted(_REMAT_KEEPS)}, "
+                             f"got {remat_policy!r}")
         c = dimensions
         self.dimensions, self.timesteps = c, timesteps
         self.use_attention, self.no_inh, self.nl = use_attention, no_inh, nl
         flags = (lesion_alpha, lesion_mu, lesion_gamma, lesion_kappa)
         self.lesions = frozenset(n for n, on in zip(_LESIONS, flags) if on)
         self.mxu = torch.bfloat16 if dtype == "bfloat16" else None
-        self.remat = remat
+        self.remat, self.remat_policy = remat, remat_policy
         # The fused kernels cover exactly the JAX package's fused configs
         # (int_circuit.py:340-345); every other config runs the eager cell.
         self.use_fused = (fused and self.mxu is not None and use_attention
@@ -341,23 +439,28 @@ class InT(nn.Module):
         if self.use_fused:
             zeros = zeros.view(-1, c)
 
-            def step(cp, xt, carry):
+            keep = frozenset()  # the fused cell recomputes the whole step
+
+            def step(cp, xt, carry, tape=None):
                 return _int_cell_step_fused(cp, xt, carry, shape)
         else:
-            def step(cp, xt, carry):
+            keep = _REMAT_KEEPS[self.remat_policy]
+
+            def step(cp, xt, carry, tape=None):
                 return _int_cell_step(
                     cp, xt, carry, use_attention=self.use_attention,
-                    no_inh=self.no_inh, act=act, mxu=mxu)
+                    no_inh=self.no_inh, act=act, mxu=mxu, tape=tape)
         if grad and (self.use_fused or self.remat):
             names, direct = tuple(cp), step
 
-            def flat(*args):
+            def flat(*args, tape):
                 (inh, exc), att = direct(dict(zip(names, args)),
-                                         args[len(names):-2], args[-2:])
+                                         args[len(names):-2], args[-2:], tape)
                 return inh, exc, att
 
             def step(cp, xt, carry):
-                inh, exc, att = _RecomputedStep.apply(flat, *cp.values(), *xt, *carry)
+                inh, exc, att = _RecomputedStep.apply(flat, keep, *cp.values(),
+                                                      *xt, *carry)
                 return (inh, exc), att
         carry = (zeros, zeros)
         states, gates = [], []

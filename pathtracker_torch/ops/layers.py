@@ -25,50 +25,52 @@ def softplus(x):
     return F.softplus(x)
 
 
-def _mixed_matmul(x, kernel, dtype):
+def _mixed_matmul(x, kernel, dtype, matmul):
     if x.is_cuda:
-        return x.to(dtype) @ kernel.to(dtype)
-    return (x.to(dtype).float() @ kernel.to(dtype).float()).to(dtype)
+        return matmul(x.to(dtype), kernel.to(dtype))
+    return matmul(x.to(dtype).float(), kernel.to(dtype).float()).to(dtype)
 
 
-def _mixed_conv(x_nchw, weight, dtype, groups=1):
+def _mixed_conv(x_nchw, weight, dtype, groups, conv):
     if x_nchw.is_cuda:
-        return F.conv2d(x_nchw.to(dtype), weight.to(dtype), padding="same",
-                        groups=groups)
-    return F.conv2d(x_nchw.to(dtype).float(), weight.to(dtype).float(),
-                    padding="same", groups=groups).to(dtype)
+        return conv(x_nchw.to(dtype), weight.to(dtype), padding="same",
+                    groups=groups)
+    return conv(x_nchw.to(dtype).float(), weight.to(dtype).float(),
+                padding="same", groups=groups).to(dtype)
 
 
-def dense(x, kernel, bias=None, mxu_dtype=None):
+def dense(x, kernel, bias=None, mxu_dtype=None, matmul=torch.matmul):
     """[..., Cin] @ [Cin, Cout] (+ bias). With ``mxu_dtype`` and an f32
     input, the mixed policy: the product takes one bf16 rounding and comes
-    back as f32."""
+    back as f32. ``matmul`` computes the product of the two operands as
+    they are after the casts (the InT cell's remat passes its own)."""
     if mxu_dtype is not None and x.dtype == torch.float32:
-        y = _mixed_matmul(x, kernel, mxu_dtype).float()
+        y = _mixed_matmul(x, kernel, mxu_dtype, matmul).float()
     else:
-        y = x @ kernel.to(x.dtype)
+        y = matmul(x, kernel.to(x.dtype))
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y
 
 
 def conv2d(x, weight, bias=None, mxu_dtype=None, keep_mxu_dtype: bool = False,
-           groups: int = 1):
+           groups: int = 1, conv=F.conv2d):
     """'SAME' stride-1 conv of an NHWC ``x`` with an OIHW ``weight``
     ([O, I/groups, k, k]) -> NHWC. The NHWC tensor enters the conv as a
     channels-last NCHW view, so no copy is made on either side.
 
     A bf16 input, or ``mxu_dtype`` with an f32 input, takes the mixed path
     and yields bf16; ``keep_mxu_dtype=False`` upcasts an f32 input's result
-    back to f32."""
+    back to f32. ``conv`` is called as ``F.conv2d`` on the operands after
+    the casts (the InT cell's remat passes its own)."""
     x_nchw = x.permute(0, 3, 1, 2)
     mixed = mxu_dtype is not None and x.dtype == torch.float32
     if mixed or x.dtype == torch.bfloat16:
-        y = _mixed_conv(x_nchw, weight, mxu_dtype or x.dtype, groups)
+        y = _mixed_conv(x_nchw, weight, mxu_dtype or x.dtype, groups, conv)
         if mixed and not keep_mxu_dtype:
             y = y.float()
     else:
-        y = F.conv2d(x_nchw, weight.to(x.dtype), padding="same", groups=groups)
+        y = conv(x_nchw, weight.to(x.dtype), padding="same", groups=groups)
     y = y.permute(0, 2, 3, 1)
     if bias is not None:
         y = y + bias.to(y.dtype)

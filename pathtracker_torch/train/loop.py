@@ -14,10 +14,13 @@ logs have the JAX package's names, layouts and formats, so each package
 resumes and evaluates the other's runs.
 
 The model runs on ``args.device`` (cuda where the namespace has none: the
-command line has no such flag). Paths of later slices raise and name their
-ROADMAP.md item: --device-data and --fused-steps (item 9), a multi-process
-launch and --parallel over more than one card (item 13). --parallel on one
-card is one device, as the JAX package's one-device mesh.
+command line has no such flag). --device-data keeps both splits on the
+device and gathers the batches there (data/resident.py); with it,
+--fused-steps K runs K steps a window, each window one CUDA graph on the
+card; without it --fused-steps is ignored, as in the JAX package. Paths of
+later slices raise and name their ROADMAP.md item: a multi-process launch
+and --parallel over more than one card (item 13). --parallel on one card is
+one device, as the JAX package's one-device mesh.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ import torch
 
 from pathtracker_torch import engine, resolve_device
 from pathtracker_torch.data.pipeline import tfr_data_loader
+from pathtracker_torch.data.resident import (ResidentBatches, load_resident,
+                                             make_resident_train_step)
 from pathtracker_torch.train import checkpoint as ckpt_lib
 from pathtracker_torch.train.steps import (build_lr_schedule, ema_params,
                                            make_eval_step, make_optimizer,
@@ -253,14 +258,6 @@ def _refuse_later_slices(args, device) -> None:
         raise NotImplementedError(
             "COORDINATOR_ADDRESS is set: multi-process training comes with a "
             "later slice of pathtracker_torch (ROADMAP.md queue 1 item 13)")
-    if getattr(args, "device_data", False):
-        raise NotImplementedError(
-            "--device-data: the device-resident dataset comes with a later "
-            "slice of pathtracker_torch (ROADMAP.md queue 1 item 9)")
-    if getattr(args, "fused_steps", 1) > 1:
-        raise NotImplementedError(
-            "--fused-steps > 1: fused step windows come with a later slice of "
-            "pathtracker_torch (ROADMAP.md queue 1 item 9)")
     if args.parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
         raise NotImplementedError(
             f"--parallel over {torch.cuda.device_count()} cards: data-parallel "
@@ -287,16 +284,30 @@ def main(args=None, max_steps_per_epoch: int | None = None):
         dist=args.dist, speed=args.speed, length=args.length,
         optical_flow=args.optical_flow,
         synth_train=args.synth_train, synth_test=args.synth_test)
-    print("Loading training dataset")
-    train_loader = tfr_data_loader(
-        data_dir=pf_root + "train-*", batch_size=args.batch_size,
-        drop_remainder=True, timesteps=args.length, seed=args.seed,
-        shard_index=0, shard_count=1)
-    print("Loading validation dataset")
-    val_loader = tfr_data_loader(
-        data_dir=pf_root + "test-*", batch_size=args.batch_size,
-        drop_remainder=True, timesteps=args.length, seed=args.seed,
-        shard_index=0, shard_count=1)
+    device_data = getattr(args, "device_data", False)
+    if device_data:
+        print("Loading training dataset (device-resident)")
+        train_clips, train_labels = load_resident(
+            pf_root + "train-*", timesteps=args.length, device=device)
+        print("Loading validation dataset (device-resident)")
+        val_clips, val_labels = load_resident(
+            pf_root + "test-*", timesteps=args.length, device=device)
+        train_loader = None
+        val_loader = ResidentBatches(val_clips, val_labels, args.batch_size,
+                                     shuffle=True, seed=args.seed)
+        len_train_loader = int(train_labels.shape[0])
+        len_val_loader = int(val_labels.shape[0])
+    else:
+        print("Loading training dataset")
+        train_loader = tfr_data_loader(
+            data_dir=pf_root + "train-*", batch_size=args.batch_size,
+            drop_remainder=True, timesteps=args.length, seed=args.seed,
+            shard_index=0, shard_count=1)
+        print("Loading validation dataset")
+        val_loader = tfr_data_loader(
+            data_dir=pf_root + "test-*", batch_size=args.batch_size,
+            drop_remainder=True, timesteps=args.length, seed=args.seed,
+            shard_index=0, shard_count=1)
 
     results_folder = results_folder_for(args)
     os.makedirs(results_folder, exist_ok=True)
@@ -389,9 +400,16 @@ def main(args=None, max_steps_per_epoch: int | None = None):
     prep = {"disentangle_channels": disentangle_channels,
             "pretrained_norm": args.pretrained,
             "coord_channels": engine.needs_coord_channels(args.model)}
-    train_step = make_train_step(model, args.model, optimizer,
-                                 penalty=args.penalty, prepare_kwargs=prep,
-                                 seed=args.seed)
+    if device_data:
+        train_step = make_resident_train_step(
+            model, args.model, optimizer, n_clips=len_train_loader,
+            batch_size=args.batch_size, penalty=args.penalty,
+            prepare_kwargs=prep, seed=args.seed,
+            fused_steps=getattr(args, "fused_steps", 1))
+    else:
+        train_step = make_train_step(model, args.model, optimizer,
+                                     penalty=args.penalty, prepare_kwargs=prep,
+                                     seed=args.seed)
     eval_step = make_eval_step(model, args.model, prepare_kwargs=prep)
 
     val_log_dict = {"loss": [], "balacc": [], "precision": [], "recall": [],
@@ -440,25 +458,37 @@ def main(args=None, max_steps_per_epoch: int | None = None):
                    "recall", "f1score")}
         time_since_last = time.time()
         end = time.perf_counter()
-        steps_done = 0
-        for idx, (imgs, target) in enumerate(device_prefetch(iter(train_loader), device)):
+        if device_data:
+            # The step gathers its own batches; with --fused-steps each
+            # iteration is a window of steps with one stats fetch.
+            batches = ((train_clips, train_labels)
+                       for _ in range(train_step.windows_per_epoch))
+        else:
+            batches = device_prefetch(iter(train_loader), device)
+        steps_done = 0  # optimizer steps (a window advances by its length)
+        for idx, (imgs, target) in enumerate(batches):
             meters["data_time"].update(time.perf_counter() - end)
-            # Trace steps 1-4 of the first epoch (step 0 warms up).
+            # Trace steps (windows) 1-4 of the first epoch (0 warms up).
             if args.profile and epoch == args.start_epoch and idx == 1:
                 profiler = _start_profiler(device)
             stats = train_step(imgs, target)
             if profiler is not None and idx >= 4:
                 profiler = _stop_profiler(profiler, args.profile)
-            meters["loss"].update(float(stats["loss"]), 1)
-            train_log_dict["jvpen"].append(float(stats["jvpen"]))
-            train_log_dict["scaled_loss"].append(float(stats["scaled_loss"]))
-            meters["balacc"].update(float(stats["balacc"]), 1)
-            meters["precision"].update(float(stats["precision"]), 1)
-            meters["recall"].update(float(stats["recall"]), 1)
-            meters["f1score"].update(float(stats["f1score"]), 1)
-            meters["batch_time"].update(time.perf_counter() - end)
+            # A window's stats are [k] arrays, a plain step's scalars.
+            sub = {k: np.atleast_1d(v) for k, v in stats.items()}
+            n_sub = len(sub["loss"])
+            for s in range(n_sub):
+                meters["loss"].update(float(sub["loss"][s]), 1)
+                train_log_dict["jvpen"].append(float(sub["jvpen"][s]))
+                train_log_dict["scaled_loss"].append(float(sub["scaled_loss"][s]))
+                meters["balacc"].update(float(sub["balacc"][s]), 1)
+                meters["precision"].update(float(sub["precision"][s]), 1)
+                meters["recall"].update(float(sub["recall"][s]), 1)
+                meters["f1score"].update(float(sub["f1score"][s]), 1)
+            # batch_time stays a step's time under fusion.
+            meters["batch_time"].update((time.perf_counter() - end) / n_sub)
             end = time.perf_counter()
-            opt_steps_done += 1 / accum
+            opt_steps_done += n_sub / accum
 
             if idx % args.print_freq == 0:
                 time_now = time.time()
@@ -485,7 +515,8 @@ def main(args=None, max_steps_per_epoch: int | None = None):
                 time_since_last = time_now
                 with open(os.path.join(results_folder, args.name + ".txt"), "a+") as f:
                     f.write(line + "\n")
-            steps_done += 1
+            # The cap counts optimizer steps, not windows.
+            steps_done += n_sub
             if max_steps_per_epoch is not None and steps_done >= max_steps_per_epoch:
                 break
             if terminated["flag"]:

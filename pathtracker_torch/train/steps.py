@@ -125,7 +125,15 @@ class Optimizer:
     ``init(params)`` binds the parameters and allocates the state;
     ``step(grads)`` takes one (micro-)gradient per parameter, ``None``
     standing for zeros as optax sees an unused parameter: its update is
-    zero and it stays as it is."""
+    zero and it stays as it is.
+
+    The update reads its per-step scalars from a device tensor, so that a
+    CUDA graph of several steps replays with each step's own: ``stage(n)``
+    writes the scalars of the next ``n`` micro-steps, ``apply(grads, i)``
+    runs micro-step ``i`` of them on the device alone, and ``advance(n)``
+    moves the host's counts past them; ``step`` is the three for one
+    micro-step. The scalars are computed on the host in float64 and stored
+    as f32, the precision the foreach kernels apply a Python scalar in."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -148,34 +156,96 @@ class Optimizer:
         # Real copies: the parameters are updated in place.
         self.ema = ([p.clone() for p in self.params]
                     if self.ema_decay is not None else None)
+        self.scalars = None
+        self.reserve(1)
         return self
 
-    def learning_rate(self) -> float:
-        """The rate the next optimizer step uses: ``schedule(steps taken)``."""
-        return float(self.lr(self.count) if callable(self.lr) else self.lr)
+    def reserve(self, slots: int) -> None:
+        """Room for the scalars of ``slots`` micro-steps, [slots, 3] f32 on
+        the parameters' device: -lr/(1-b1^c), 1-b2^c and the accumulation
+        divisor (micro-steps into the window, this one included). A graph
+        that reads the rows must be captured after the last call."""
+        if self.scalars is not None and self.scalars.shape[0] >= slots:
+            return
+        device = self.params[0].device
+        self.scalars = torch.zeros((slots, 3), dtype=torch.float32, device=device)
+        self._pinned = (torch.zeros((slots, 3), dtype=torch.float32).pin_memory()
+                        if device.type == "cuda" else None)
+        self._staged = None  # the event after the last copy out of _pinned
 
-    @torch.no_grad()
+    def learning_rate(self, count: int | None = None) -> float:
+        """The rate optimizer step ``count`` (by default the next) uses:
+        ``schedule(count)``."""
+        count = self.count if count is None else count
+        return float(self.lr(count) if callable(self.lr) else self.lr)
+
+    def stage(self, n: int) -> None:
+        """Write the scalars of the next ``n`` micro-steps into rows 0..n-1;
+        a micro-step that ends no accumulation window gets only its
+        divisor."""
+        if n > self.scalars.shape[0]:
+            raise ValueError(f"{n} micro-steps staged, room for "
+                             f"{self.scalars.shape[0]} (Optimizer.reserve)")
+        rows, count, mini = [], self.count, self.mini_step
+        for _ in range(n):
+            divisor = mini + 1
+            mini = (mini + 1) % self.accum_steps
+            size, bc2 = 0.0, 1.0
+            if mini == 0:
+                lr = self.learning_rate(count)
+                count += 1
+                size, bc2 = -lr / (1.0 - self.B1 ** count), 1.0 - self.B2 ** count
+            rows.append((size, bc2, divisor))
+        host = torch.tensor(rows, dtype=torch.float64).float()
+        if self._pinned is None:
+            self.scalars[:n].copy_(host)
+            return
+        if self._staged is not None:
+            self._staged.synchronize()  # the last copy out of the buffer is done
+        self._pinned[:n].copy_(host)
+        self.scalars[:n].copy_(self._pinned[:n], non_blocking=True)
+        self._staged = torch.cuda.Event()
+        self._staged.record()
+
+    def advance(self, n: int) -> None:
+        """Move the host's counts past ``n`` micro-steps."""
+        for _ in range(n):
+            self.mini_step = (self.mini_step + 1) % self.accum_steps
+            if self.mini_step == 0:
+                self.count += 1
+
     def step(self, grads) -> None:
         if self.params is None:
             raise RuntimeError("Optimizer.init(params) was not called")
+        self.stage(1)
+        self.apply(grads, 0)
+        self.advance(1)
+
+    @torch.no_grad()
+    def apply(self, grads, slot: int = 0) -> None:
+        """Micro-step ``slot`` of the staged ones, with no host sync: the
+        window's phase is the host's, so a graph of it holds for that phase
+        only."""
+        size, bc2, divisor = self.scalars[slot].unbind()
         grads = [torch.zeros_like(p) if g is None else g.to(p.dtype)
                  for g, p in zip(grads, self.params, strict=True)]
         if self.acc is not None:
-            # optax.MultiSteps: a running mean of the window's micro-gradients;
-            # no update until the window's last micro-step.
-            torch._foreach_add_(self.acc, torch._foreach_sub(grads, self.acc),
-                                alpha=1.0 / (self.mini_step + 1))
-            self.mini_step = (self.mini_step + 1) % self.accum_steps
-            if self.mini_step == 0:
-                self._adam(self.acc)
+            # optax.MultiSteps: a running mean of the window's
+            # micro-gradients, acc + (g - acc) / (mini_step + 1); no update
+            # until the window's last micro-step.
+            diff = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(diff, divisor)
+            torch._foreach_add_(self.acc, diff)
+            if (self.mini_step + slot + 1) % self.accum_steps == 0:
+                self._adam(self.acc, size, bc2)
                 torch._foreach_zero_(self.acc)
         else:
-            self._adam(grads)
+            self._adam(grads, size, bc2)
         if self.ema is not None:  # outermost: on every micro-step
             torch._foreach_mul_(self.ema, self.ema_decay)
             torch._foreach_add_(self.ema, self.params, alpha=1.0 - self.ema_decay)
 
-    def _adam(self, grads) -> None:
+    def _adam(self, grads, size, bc2) -> None:
         if self.clip_grad is not None:
             # optax.clip_by_global_norm: g * clip / max(norm, clip), with no
             # epsilon in the denominator.
@@ -183,17 +253,15 @@ class Optimizer:
                 torch.stack(torch._foreach_norm(grads)))
             scale = self.clip_grad / norm.clamp_min(self.clip_grad)
             grads = torch._foreach_mul(grads, scale)
-        lr = self.learning_rate()
-        self.count += 1
         torch._foreach_lerp_(self.mu, grads, 1.0 - self.B1)
         torch._foreach_mul_(self.nu, self.B2)
         torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.B2)
-        # update = -lr * mu_hat / (sqrt(nu_hat) + eps)
-        denom = torch._foreach_div(self.nu, 1.0 - self.B2 ** self.count)
+        # update = -lr * mu_hat / (sqrt(nu_hat) + eps), as
+        # p + ((-lr / (1 - b1^c)) * mu) / (sqrt(nu / (1 - b2^c)) + eps)
+        denom = torch._foreach_div(self.nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.EPS)
-        torch._foreach_addcdiv_(self.params, self.mu, denom,
-                                value=-lr / (1.0 - self.B1 ** self.count))
+        torch._foreach_addcdiv_(self.params, torch._foreach_mul(self.mu, size), denom)
 
     # ---- the optimizer state in the JAX package's layout -------------------
 

@@ -56,3 +56,16 @@ def test_in_image_terms_count_the_products_that_touch_the_image():
     assert chip_smoke._in_image_terms(32, 15, 1) == 32 * 15 - 56
     assert chip_smoke._in_image_terms(5, 1, 1) == 5
     assert chip_smoke._in_image_terms(4, 3, 2) == 4 * 3 - 4
+
+
+def test_instance_names_a_profiled_kernel_as_resource_lines_does():
+    # The demangled names a device trace gives, template arguments and all.
+    assert chip_smoke._instance(
+        "void (anonymous namespace)::corr_bwd_kernel<false, true, 15>(float const*, "
+        "float const*, float*, int, int)") == "corr_bwd_kernel<0, 1, 15>"
+    assert chip_smoke._instance(
+        "void corr_bwd_kernel<(bool)1, (bool)1, 15>(float const*)") == "corr_bwd_kernel<1, 1, 15>"
+    assert chip_smoke._instance("corr_fwd_kernel<true, 15>(float const*)") == \
+        "corr_fwd_kernel<1, 15>"
+    assert chip_smoke._instance("void (anonymous namespace)::k1_kernel(float const*)") == \
+        "k1_kernel"

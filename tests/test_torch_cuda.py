@@ -10,6 +10,9 @@ runs where they are not installed:
 (``--noconftest``: the suite's shared conftest.py configures JAX).
 """
 
+import os
+import sys
+
 import pytest
 import torch
 
@@ -18,6 +21,9 @@ from pathtracker_torch.models.tsm_resnet import TSMResNet
 from pathtracker_torch.ops import _native
 from pathtracker_torch.ops import correlation as corr
 from pathtracker_torch.ops import int_fused as F
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402
 
 C = 32
 BF16 = torch.bfloat16
@@ -628,3 +634,78 @@ def test_cuda_auto_resume_restores_the_moments_onto_the_card(cuda, tmp_path, mon
     assert count == first.count == 2 and optimizers[-1].count == 4
     for a, b in zip(first.mu + first.nu, moments):
         assert b.is_cuda and torch.equal(a, b)
+
+
+# ------------------ resident windows: CUDA graphs vs eager -------------------
+
+def _resident_pair(cuda, optimizer_kw, fused_steps, n_clips=16, batch=4, timesteps=4):
+    """Two copies of one small fused bf16 InT with their optimizers: one
+    driven by make_resident_train_step (graph windows), the other by
+    make_train_step (eager steps) on the batches the windows gather."""
+    import numpy as np
+
+    from pathtracker_torch.data.resident import make_resident_train_step
+    from pathtracker_torch.train.steps import make_optimizer, make_train_step
+
+    rng = np.random.default_rng(0)
+    clips = torch.from_numpy(rng.integers(0, 256, (n_clips, timesteps, 32, 32, 3),
+                                          dtype=np.uint8)).to(cuda)
+    labels = torch.from_numpy(rng.integers(0, 2, (n_clips,), dtype=np.uint8)).to(cuda)
+    models = [InT(dimensions=C, timesteps=timesteps, kernel_size=3, dtype="bfloat16",
+                  seed=0, device=cuda) for _ in range(2)]
+    opts = [make_optimizer(**optimizer_kw) for _ in range(2)]
+    graphed = make_resident_train_step(models[0], "InT", opts[0], n_clips=n_clips,
+                                       batch_size=batch, fused_steps=fused_steps)
+    eager = make_train_step(models[1], "InT", opts[1])
+    return clips, labels, models, opts, graphed, eager
+
+
+def _assert_window_matches_eager(opts, models, lr, steps):
+    """chip_smoke.py's rule: bit-identical unless cuDNN's weight-gradient
+    algorithm is nondeterministic; then Adam's sign-like update can move an
+    entry whose gradient sits at rounding distance from zero by up to 2*lr a
+    step, so every entry is held within 2*lr*steps and all but one in a
+    hundred within lr/100. A rate baked into the graph at capture moves
+    nearly every entry by a tenth of lr or more."""
+    account, held = chip_smoke.window_account(models, opts, lr, steps)
+    assert held, account
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    dict(fused_steps=3, windows=2, graphs=2, lr=1e-3, optimizer=dict(lr=1e-3)),
+    dict(fused_steps=2, windows=2, graphs=1, lr=4e-3, optimizer=dict(
+        lr=1e-3, schedule=lambda count: 1e-3 * (1 + count))),
+    dict(fused_steps=2, windows=3, graphs=3, lr=1e-3,
+         optimizer=dict(lr=1e-3, accum_steps=3, ema=0.9)),
+], ids=["k3-and-tail", "two-replays-two-rates", "accumulation-phases"])
+def test_cuda_resident_windows_match_eager_steps(cuda, case, monkeypatch):
+    """Graph windows against eager steps on the same batches: a window of 3
+    then the epoch's tail of 1 (two graphs); one graph replayed for two
+    windows under a rate that changes every step (``lr``: the largest);
+    windows of 2 under accumulation over 3, whose phases at a window's start
+    run 0, 2, 1 (a graph each). cuDNN's deterministic algorithms: its
+    default ones can sum a weight gradient in another order each run."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    clips, labels, models, opts, graphed, eager = _resident_pair(
+        cuda, case["optimizer"], case["fused_steps"])
+    losses, steps = [], 0
+    for _ in range(case["windows"]):
+        stats = graphed(clips, labels)
+        for j, loss in enumerate(stats["loss"]):
+            idx = graphed.indices(steps + j)
+            want = eager(clips.index_select(0, idx), labels.index_select(0, idx))
+            losses.append((float(loss), float(want["loss"])))
+        steps += len(stats["loss"])
+    assert len(graphed.graphs) == case["graphs"]
+    for got, want in losses:
+        assert abs(got - want) <= 1e-4, losses
+    _assert_window_matches_eager(opts, models, case["lr"], steps)
+
+
+@pytest.mark.gpu
+def test_cuda_resident_window_refuses_cpu_clips(cuda):
+    _, labels, _, _, graphed, _ = _resident_pair(cuda, dict(lr=1e-3), 2)
+    with pytest.raises(ValueError, match="resident clips on cpu"):
+        graphed(torch.zeros((16, 4, 32, 32, 3), dtype=torch.uint8), labels)
+    assert not graphed.graphs

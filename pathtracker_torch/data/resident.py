@@ -119,6 +119,11 @@ def make_resident_train_step(model, model_name: str, optimizer, n_clips: int,
     ``graphs``, {(k, phase): CUDAGraph} of the windows captured on the card
     (``phase``: micro-steps into the accumulation window at its start), and
     ``indices(s)``, the clip indices step ``s`` gathers."""
+    if "rbp" in getattr(model, "grad_method", "bptt"):
+        # Each Neumann term's exit test reads a norm back to the host
+        # (ops/rbp.py), which a CUDA graph cannot hold.
+        raise ValueError("--algo rbp cannot run in a resident window: its "
+                         "backward syncs with the host every Neumann term")
     prep = dict(prepare_kwargs or {})
     params = [p for p in model.parameters() if p.requires_grad]
     device = params[0].device

@@ -1,7 +1,8 @@
 """Engine: model selection from parsed flags, forward-family dispatch, batch
 prep and checkpoint loading (pathtracker_tpu/engine.py), for the families
-the port builds: the recurrent InT family and, of the 'torchvision' family,
-``rntsm``. The reference-compatible API of reference utils/engine.py:
+the port builds: the recurrent InT family, ``fc``, the hGRU family and
+``gru`` and, of the 'torchvision' family, ``rntsm``. The
+reference-compatible API of reference utils/engine.py:
 model_selector, model_step, prepare_data, dataset_selector, get_datasets,
 load_ckpt, plot_results, and the APIs its viz script called but its
 snapshot never defined (fix_model_name, human_dataset_selector).
@@ -33,6 +34,16 @@ def model_selector(args, timesteps: int, device=None, **model_kwargs):
     """Build a model from parsed args (reference utils/engine.py:75-217) on
     ``device`` (``None`` means cuda); ``model_kwargs`` reach its constructor."""
     kwargs = dict(model_kwargs)
+    if args.model == "convlstm":
+        # ConvLSTM keeps the reference's legacy direct-call contract (a
+        # static [B,1,H,W] image in, [B,2,H,W] out, the criterion inside;
+        # reference convlstm.py:116), as in the JAX package
+        # (pathtracker_tpu/engine.py:35-47).
+        raise NotImplementedError(
+            "'convlstm' uses the reference's legacy direct-call contract "
+            "(static image -> [B,2,H,W]; reference convlstm.py:116) and is "
+            "not trainable through the video CLI — build it via "
+            "pathtracker_torch.models.registry.model_selector('convlstm')")
     if getattr(args, "bf16", False) and (
             args.model.startswith(("InT", "r3d", "mc3", "r2plus1", "nostride"))
             or args.model in ("hgru", "hgru_v2", "clock_hgru",
@@ -41,17 +52,15 @@ def model_selector(args, timesteps: int, device=None, **model_kwargs):
         # matmul operands, f32 state).
         kwargs["dtype"] = "bfloat16"
     algo = getattr(args, "algo", "bptt")
-    if "rbp" in algo and family(args.model) == "recurrent":
-        # As the JAX package: --algo matters in the recurrent family only,
-        # and 'rbp' only for InT*. The port's InT has no grad_method: every
-        # other value ('Testing', set by the eval scripts) trains with BPTT.
-        if not args.model.startswith("InT"):
+    if algo != "bptt" and family(args.model) == "recurrent":
+        # As the JAX package (engine.py:56-69): --algo matters in the
+        # recurrent family only, and 'rbp' only for InT*; every other value
+        # ('Testing', set by the eval scripts) trains with BPTT.
+        if "rbp" in algo and not args.model.startswith("InT"):
             raise NotImplementedError(
                 f"--algo {algo!r} is implemented for InT*; "
                 f"{args.model!r} trains with bptt")
-        raise NotImplementedError(
-            f"--algo {algo!r}: Neumann RBP comes with a later slice of "
-            "pathtracker_torch (ROADMAP.md queue 1 item 8)")
+        kwargs["grad_method"] = algo
     if getattr(args, "remat_blocks", False):
         # Per-residual-block rematerialization for rntsm, whose no-stride
         # trunk keeps full 32x32 maps through 1024/2048-wide stages: without

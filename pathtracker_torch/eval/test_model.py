@@ -150,7 +150,10 @@ def evaluate_model(results_folder, args, prep_gifs=3, dist=14, speed=1, length=6
                           f"test_perf_dist_{dist}_speed_{speed}_length_{length}"),
              np.mean(accs), np.mean(losses))
 
-    recurrent = engine.family(args.model) == "recurrent"
+    # The plots draw one activity map a frame: fc (a probe) has none, and
+    # hgru_v2's states are its raw C-channel excitation.
+    recurrent = engine.family(args.model) == "recurrent" and (
+        last is None or (last[1] is not None and last[1].shape[2] == 1))
     if recurrent and last is not None and prep_gifs and not _can_plot():
         warnings.warn("matplotlib or imageio is not installed: the plots and GIFs "
                       "are skipped", stacklevel=2)

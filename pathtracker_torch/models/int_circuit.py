@@ -65,6 +65,7 @@ from pathtracker_torch.models.common import fill_
 from pathtracker_torch.ops import initializers as init
 from pathtracker_torch.ops import int_fused as F
 from pathtracker_torch.ops.layers import batch_norm, conv2d, dense, softplus
+from pathtracker_torch.ops.rbp import neumann_rbp
 
 _NL = {"softplus": softplus, "tanh": torch.tanh}
 _LESIONS = ("alpha", "mu", "gamma", "kappa")
@@ -261,6 +262,22 @@ class _RecomputedStep(torch.autograd.Function):
         return (None, None, *(next(grads) if want else None for want in wanted))
 
 
+def recomputed(step, names, n_carry: int, keep=frozenset()):
+    """``step(cp, xt, carry, tape=None) -> (carry, aux)`` as a step that goes
+    through ``_RecomputedStep``: ``cp`` a dict over ``names``, ``carry`` a
+    tuple of ``n_carry`` tensors, ``keep`` what the remat policy keeps."""
+    def flat(*args, tape):
+        carry, aux = step(dict(zip(names, args)), args[len(names):-n_carry],
+                          args[-n_carry:], tape)
+        return (*carry, aux)
+
+    def wrapped(cp, xt, carry):
+        *carry, aux = _RecomputedStep.apply(flat, keep, *(cp[n] for n in names),
+                                            *xt, *carry)
+        return tuple(carry), aux
+    return wrapped
+
+
 class RCell(nn.Module):
     """The recurrent cell's parameters (reference models/InT.py rCell :58),
     named after the reference state_dict (``unit1.*``): 1x1 gate convs,
@@ -344,7 +361,7 @@ class InT(nn.Module):
                  lesion_kappa: bool = False, nl: str = "softplus",
                  fused: bool = True, remat: bool = True,
                  remat_policy: str = "conv", dtype: str = "float32",
-                 seed: int = 0, device=None):
+                 grad_method: str = "bptt", seed: int = 0, device=None):
         super().__init__()
         if nl not in _NL:
             raise ValueError(f"nl must be one of {sorted(_NL)}, got {nl!r}")
@@ -360,11 +377,13 @@ class InT(nn.Module):
         self.lesions = frozenset(n for n, on in zip(_LESIONS, flags) if on)
         self.mxu = torch.bfloat16 if dtype == "bfloat16" else None
         self.remat, self.remat_policy = remat, remat_policy
+        self.grad_method = grad_method
         # The fused kernels cover exactly the JAX package's fused configs
         # (int_circuit.py:340-345); every other config runs the eager cell.
         self.use_fused = (fused and self.mxu is not None and use_attention
                           and not no_inh and nl == "softplus"
-                          and not self.lesions and F.supported(c))
+                          and not self.lesions and "rbp" not in grad_method
+                          and F.supported(c))
 
         gen = torch.Generator().manual_seed(seed)
         self.preproc = nn.utils.skip_init(nn.Conv3d, 3, c, 1)
@@ -409,6 +428,31 @@ class InT(nn.Module):
                       bn0_bias=cell.bn[0].bias)
         return cp
 
+    def _rbp(self, cp, slices, carry, act):
+        """Neumann RBP over the eager cell (int_circuit.py:389-411): the
+        first T-1 steps without gradient, the last one through
+        ``neumann_rbp`` with 15 terms at most. Returns the last carry."""
+        kw = dict(use_attention=self.use_attention, no_inh=self.no_inh,
+                  act=act, mxu=self.mxu)
+        with torch.no_grad():
+            for xt in slices[:-1]:
+                carry, _ = _int_cell_step(cp, xt, carry, **kw)
+        names = [k for k, v in cp.items() if isinstance(v, torch.Tensor)]
+        consts = {k: v for k, v in cp.items() if not isinstance(v, torch.Tensor)}
+        last = slices[-1]
+        present = [i for i, z in enumerate(last) if z is not None]
+
+        def rbp_step(aux, state):
+            cp_ = dict(consts, **dict(zip(names, aux)))
+            xt = [None] * len(last)
+            for i, z in zip(present, aux[len(names):]):
+                xt[i] = z
+            new_carry, _ = _int_cell_step(cp_, tuple(xt), tuple(state), **kw)
+            return new_carry
+
+        aux = tuple(cp[k] for k in names) + tuple(last[i] for i in present)
+        return neumann_rbp(rbp_step, aux, carry, 15)
+
     def forward(self, x, testmode: bool = False):
         c = self.dimensions
         act = _NL[self.nl]
@@ -451,24 +495,17 @@ class InT(nn.Module):
                     cp, xt, carry, use_attention=self.use_attention,
                     no_inh=self.no_inh, act=act, mxu=mxu, tape=tape)
         if grad and (self.use_fused or self.remat):
-            names, direct = tuple(cp), step
-
-            def flat(*args, tape):
-                (inh, exc), att = direct(dict(zip(names, args)),
-                                         args[len(names):-2], args[-2:], tape)
-                return inh, exc, att
-
-            def step(cp, xt, carry):
-                inh, exc, att = _RecomputedStep.apply(flat, keep, *cp.values(),
-                                                      *xt, *carry)
-                return (inh, exc), att
+            step = recomputed(step, tuple(cp), 2, keep)
         carry = (zeros, zeros)
         states, gates = [], []
         # unbind, not inp[i]: one stacked gradient per projection in backward
         # instead of T full-size zero-filled ones.
-        slices = zip(inp.unbind(0),
-                     att_in.unbind(0) if att_in is not None else [None] * t,
-                     gi_in.unbind(0))
+        slices = list(zip(inp.unbind(0),
+                          att_in.unbind(0) if att_in is not None else [None] * t,
+                          gi_in.unbind(0)))
+        if "rbp" in self.grad_method and not testmode:
+            carry = self._rbp(cp, slices, carry, act)
+            slices = []
         for xt in slices:
             carry, att = step(cp, xt, carry)
             if testmode:
@@ -482,4 +519,40 @@ class InT(nn.Module):
             states = torch.stack(states).permute(1, 0, 4, 2, 3)  # [B,T,1,H,W]
             gates = torch.stack(gates).permute(1, 0, 4, 2, 3)  # [B,T,C,H,W]
             return logit, states, gates
+        return logit, torch.ones((1,), device=x.device)
+
+
+class FC(nn.Module):
+    """Linear probe baseline (int_circuit.py:431-458; reference
+    models/InT.py:248-271): 1x1x1 Conv3d preproc -> batch-stat BatchNorm3d
+    -> flatten in BCTHW order -> Linear(T*C*H*W, 1). The clip's height and
+    width fix the readout's width, so they are arguments here."""
+
+    def __init__(self, dimensions: int = 32, timesteps: int = 64,
+                 kernel_size: int = 15, height: int = 32, width: int = 32,
+                 grad_method: str = "bptt", seed: int = 0, device=None):
+        super().__init__()
+        c = dimensions
+        self.dimensions, self.timesteps = c, timesteps
+        self.grad_method = grad_method
+        gen = torch.Generator().manual_seed(seed)
+        self.preproc = nn.utils.skip_init(nn.Conv3d, 3, c, 1)
+        fill_(self.preproc.weight, init.torch_conv_default, gen)
+        fill_(self.preproc.bias, init.torch_conv_bias(3), gen)
+        self.bn = nn.BatchNorm3d(c, eps=F.BN_EPS, track_running_stats=False)
+        feat = timesteps * c * height * width
+        self.readout = nn.utils.skip_init(nn.Linear, feat, 1)
+        fill_(self.readout.weight, init.torch_conv_default, gen)
+        fill_(self.readout.bias, init.torch_conv_bias(feat), gen)
+        self.to(resolve_device(device))
+
+    def forward(self, x, testmode: bool = False):
+        c = self.dimensions
+        xc = x.permute(0, 2, 3, 4, 1)  # [B,T,H,W,3]
+        z = dense(xc, self.preproc.weight.view(c, 3).t(), self.preproc.bias)
+        z = batch_norm(z, self.bn.weight, self.bn.bias)
+        z = z.permute(0, 4, 1, 2, 3).reshape(x.shape[0], -1)  # BCTHW order
+        logit = dense(z, self.readout.weight.t(), self.readout.bias)
+        if testmode:  # a probe has no recurrent state to show
+            return logit, None, None
         return logit, torch.ones((1,), device=x.device)

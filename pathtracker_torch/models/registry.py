@@ -1,6 +1,8 @@
 """Model registry: name -> constructor (pathtracker_tpu/models/registry.py).
 
-The port builds the InT family and ``rntsm`` (TSM-ResNet50 with
+The port builds the InT family, the linear probe ``fc``, the hGRU family
+(``hgru``, ``hgru_v2``, ``clock_hgru``, ``clock_hgru_fixed``), the ConvGRU
+``gru``, the legacy-contract ``convlstm`` and ``rntsm`` (TSM-ResNet50 with
 MotionSqueeze); every other reference ``--model`` name raises
 ``NotImplementedError`` naming the slice that ports it. MODEL_FAMILY mirrors the three forward-contract families of the
 reference's model_step (reference utils/engine.py:29-30,42-72):
@@ -39,9 +41,9 @@ INT_VARIANTS = {
     "InT_tanh": {"nl": "tanh"},
 }
 
-_RECURRENT_ZOO = ("fc", "hgru", "hgru_v2", "clock_hgru", "clock_hgru_fixed",
-                  "gru", "convlstm", "stlstm", "fflstm", "lrcn", "lrcn_last",
-                  "ffnet")
+_RECURRENT_ZOO = ("stlstm", "fflstm", "lrcn", "lrcn_last", "ffnet")
+ZOO = ("fc", "hgru", "hgru_v2", "clock_hgru", "clock_hgru_fixed", "gru",
+       "convlstm")
 _FEEDFORWARD_ZOO = tuple(n for n in MODEL_FAMILY if n != "rntsm") + (
     "timesformer", "performer", "lambda")
 
@@ -67,13 +69,14 @@ def model_selector(model_name: str, timesteps: int, fb_kernel_size: int = 7,
 
     if model_name in _RECURRENT_ZOO:
         raise NotImplementedError(
-            f"{model_name!r} is not ported yet: the recurrent zoo comes with a "
-            "later slice of pathtracker_torch (ROADMAP.md queue 1 item 11)")
+            f"{model_name!r} is not ported yet: the rest of the recurrent zoo "
+            "comes with a later slice of pathtracker_torch (ROADMAP.md queue 1 "
+            "item 15)")
     if model_name in _FEEDFORWARD_ZOO:
         raise NotImplementedError(
             f"{model_name!r} is not ported yet: the feedforward zoo comes with "
             "a later slice of pathtracker_torch (ROADMAP.md queue 1 item 12)")
-    if model_name not in INT_VARIANTS and model_name != "rntsm":
+    if model_name not in INT_VARIANTS and model_name not in ZOO + ("rntsm",):
         raise NotImplementedError(f"Model not found: {model_name!r}")
     if pretrained:
         warnings.warn(
@@ -84,6 +87,25 @@ def model_selector(model_name: str, timesteps: int, fb_kernel_size: int = 7,
         from pathtracker_torch.models import tsm_resnet
         return tsm_resnet.resnet50_tsm(num_segments=8, flow_estimation=True,
                                        device=device, **kwargs)
+    if model_name == "fc":
+        return int_circuit.FC(dimensions=dimensions, timesteps=timesteps,
+                              kernel_size=fb_kernel_size, device=device, **kwargs)
+    if model_name in ("hgru", "hgru_v2", "clock_hgru", "clock_hgru_fixed"):
+        from pathtracker_torch.models import hgru
+        if model_name.startswith("clock_hgru"):
+            kwargs["clock_type"] = "fixed" if model_name.endswith("_fixed") else "dynamic"
+        cls = {"hgru": hgru.FFhGRU, "hgru_v2": hgru.FFhGRUv2}.get(model_name, hgru.ClockHGRU)
+        return cls(dimensions=dimensions, timesteps=timesteps,
+                   kernel_size=fb_kernel_size, device=device, **kwargs)
+    if model_name == "gru":
+        from pathtracker_torch.models import convgru
+        # The reference doubles the width for the ConvGRU baseline
+        # (reference utils/engine.py:148-153).
+        return convgru.GRU(dimensions=dimensions * 2, timesteps=timesteps,
+                           kernel_size=fb_kernel_size, device=device, **kwargs)
+    if model_name == "convlstm":
+        from pathtracker_torch.models import convlstm
+        return convlstm.ConvLSTM(timesteps=timesteps, device=device, **kwargs)
     return int_circuit.InT(dimensions=dimensions, timesteps=timesteps,
                            kernel_size=fb_kernel_size, device=device,
                            **INT_VARIANTS[model_name], **kwargs)

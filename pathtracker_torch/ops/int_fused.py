@@ -36,11 +36,25 @@ arithmetic of its own. ``k1_attention``, ``k2_inhibition`` and
 ``k3_excitation`` are differentiable: given an input that requires grad they
 go through a ``torch.autograd.Function`` whose backward is the backward
 wrapper.
+
+The three forward phases are also registered as ``torch.library`` custom
+ops (``torch.ops.pathtracker.k1_attention`` etc.): the checks, the launch
+(or the plain version on the CPU) and the launch count are the op's real
+implementation (``_k1_impl`` ...), and its fake one gives the output shapes
+and dtypes. Under ``torch.export`` (eval/serve.py) or ``torch.compile`` a
+forward call goes through the op, so the program records a call to it, not
+the traced plain version, and no shape check puts a guard on a symbolic
+batch; an eager call runs the real implementation directly and skips the
+op's dispatch: 26-35 us of host time a call beside an NVIDIA H100 80GB
+HBM3 (700 W), which the host-bound train step pays 6T times, +9.5-16.9% at
+its median (scripts/torch_dispatch_cost.py). A program that loads such an
+export needs this module imported, which registers the ops.
 """
 
 from __future__ import annotations
 
 import torch
+from torch import Tensor
 from torch.autograd.function import once_differentiable
 
 from pathtracker_torch.ops import _native
@@ -359,6 +373,60 @@ def _needed(ctx, grads):
                  for g, need in zip(grads, ctx.needs_input_grad))
 
 
+# ------------------- the forward phases as custom ops ------------------------
+
+def _k1_impl(exc: Tensor, att_x: Tensor, a_u: Tensor, a_u_b: Tensor) -> tuple[Tensor, Tensor]:
+    args = (exc, att_x, a_u, a_u_b)
+    return _k1_launch(args) if _on_card(_K1_SPEC, args) else k1_attention_plain(*args)
+
+
+def _k2_impl(conv_i: Tensor, mean0: Tensor, rstd0: Tensor, scale0: Tensor,
+             bias0: Tensor, inp: Tensor, gi_x: Tensor, inh: Tensor, i_u: Tensor,
+             i_u_b: Tensor, alpha: Tensor, mu: Tensor) -> Tensor:
+    args = (conv_i, mean0, rstd0, scale0, bias0, inp, gi_x, inh, i_u, i_u_b, alpha, mu)
+    return _k2_launch(args) if _on_card(_K2_SPEC, args) else k2_inhibition_plain(*args)
+
+
+def _k3_impl(conv_e: Tensor, mean1: Tensor, rstd1: Tensor, scale1: Tensor,
+             bias1: Tensor, new_inh: Tensor, inh: Tensor, gated: Tensor, exc: Tensor,
+             e_w: Tensor, e_w_b: Tensor, e_u: Tensor, e_u_b: Tensor, kappa: Tensor,
+             gamma: Tensor) -> Tensor:
+    args = (conv_e, mean1, rstd1, scale1, bias1, new_inh, inh, gated, exc, e_w, e_w_b,
+            e_u, e_u_b, kappa, gamma)
+    return _k3_launch(args) if _on_card(_K3_SPEC, args) else k3_excitation_plain(*args)
+
+
+_k1_op = torch.library.custom_op("pathtracker::k1_attention", _k1_impl, mutates_args=())
+_k2_op = torch.library.custom_op("pathtracker::k2_inhibition", _k2_impl, mutates_args=())
+_k3_op = torch.library.custom_op("pathtracker::k3_excitation", _k3_impl, mutates_args=())
+
+
+@_k1_op.register_fake
+def _(exc, att_x, a_u, a_u_b):
+    return torch.empty_like(exc, dtype=_BF16), torch.empty_like(exc)
+
+
+@_k2_op.register_fake
+def _(conv_i, mean0, rstd0, scale0, bias0, inp, gi_x, inh, i_u, i_u_b, alpha, mu):
+    return torch.empty_like(inh)
+
+
+@_k3_op.register_fake
+def _(conv_e, mean1, rstd1, scale1, bias1, new_inh, inh, gated, exc, e_w, e_w_b,
+      e_u, e_u_b, kappa, gamma):
+    return torch.empty_like(exc)
+
+
+def _forward(op, impl, args):
+    """The op where a program is being traced (a tracer's flag, or its fake
+    or functional tensor subclass in place of the activation), else its
+    implementation."""
+    if (torch.compiler.is_compiling() or torch.compiler.is_exporting()
+            or type(args[0]) is not torch.Tensor):
+        return op(*args)
+    return impl(*args)
+
+
 class K1Attention(torch.autograd.Function):
     """``k1_attention`` with ``k1_attention_bwd`` as its backward."""
 
@@ -366,7 +434,7 @@ class K1Attention(torch.autograd.Function):
     def forward(ctx, *args):
         ctx.save_for_backward(*args)
         ctx.set_materialize_grads(False)
-        return _k1_launch(args) if args[0].is_cuda else k1_attention_plain(*args)
+        return _forward(_k1_op, _k1_impl, args)
 
     @staticmethod
     @once_differentiable
@@ -384,7 +452,7 @@ class K2Inhibition(torch.autograd.Function):
     def forward(ctx, *args):
         ctx.save_for_backward(*args)
         ctx.set_materialize_grads(False)
-        return _k2_launch(args) if args[0].is_cuda else k2_inhibition_plain(*args)
+        return _forward(_k2_op, _k2_impl, args)
 
     @staticmethod
     @once_differentiable
@@ -400,7 +468,7 @@ class K3Excitation(torch.autograd.Function):
     def forward(ctx, *args):
         ctx.save_for_backward(*args)
         ctx.set_materialize_grads(False)
-        return _k3_launch(args) if args[0].is_cuda else k3_excitation_plain(*args)
+        return _forward(_k3_op, _k3_impl, args)
 
     @staticmethod
     @once_differentiable
@@ -413,10 +481,9 @@ def k1_attention(exc, att_x, a_u, a_u_b):
     """exc [R,C] f32, att_x [R,C] bf16, a_u [C,C] bf16, a_u_b [C] f32 ->
     (gated_exc [R,C] bf16, att [R,C] f32)."""
     args = (exc, att_x, a_u, a_u_b)
-    on_card = _on_card(_K1_SPEC, args)
     if _differentiable(args):
         return K1Attention.apply(*args)
-    return _k1_launch(args) if on_card else k1_attention_plain(*args)
+    return _forward(_k1_op, _k1_impl, args)
 
 
 def k2_inhibition(conv_i, mean0, rstd0, scale0, bias0, inp, gi_x, inh,
@@ -425,10 +492,9 @@ def k2_inhibition(conv_i, mean0, rstd0, scale0, bias0, inp, gi_x, inh,
     rest [C] f32 -> new_inh [R,C] f32."""
     args = (conv_i, mean0, rstd0, scale0, bias0, inp, gi_x, inh, i_u, i_u_b,
             alpha, mu)
-    on_card = _on_card(_K2_SPEC, args)
     if _differentiable(args):
         return K2Inhibition.apply(*args)
-    return _k2_launch(args) if on_card else k2_inhibition_plain(*args)
+    return _forward(_k2_op, _k2_impl, args)
 
 
 def k3_excitation(conv_e, mean1, rstd1, scale1, bias1, new_inh, inh, gated,
@@ -437,10 +503,9 @@ def k3_excitation(conv_e, mean1, rstd1, scale1, bias1, new_inh, inh, gated,
     [C,C] bf16; the rest [C] f32 -> new_exc [R,C] f32."""
     args = (conv_e, mean1, rstd1, scale1, bias1, new_inh, inh, gated, exc,
             e_w, e_w_b, e_u, e_u_b, kappa, gamma)
-    on_card = _on_card(_K3_SPEC, args)
     if _differentiable(args):
         return K3Excitation.apply(*args)
-    return _k3_launch(args) if on_card else k3_excitation_plain(*args)
+    return _forward(_k3_op, _k3_impl, args)
 
 
 FORWARD_KERNELS = (k1_attention, k2_inhibition, k3_excitation)

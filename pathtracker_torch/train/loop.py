@@ -258,6 +258,12 @@ def _refuse_later_slices(args, device) -> None:
         raise NotImplementedError(
             "COORDINATOR_ADDRESS is set: multi-process training comes with a "
             "later slice of pathtracker_torch (ROADMAP.md queue 1 item 13)")
+    if "rbp" in getattr(args, "algo", "bptt") and (
+            getattr(args, "device_data", False) or getattr(args, "fused_steps", 1) > 1):
+        # Each Neumann term's exit test reads a norm back to the host
+        # (ops/rbp.py): RBP steps run one by one, outside CUDA graphs.
+        raise ValueError("--algo rbp runs neither --device-data nor --fused-steps: "
+                         "its backward syncs with the host every Neumann term")
     if args.parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
         raise NotImplementedError(
             f"--parallel over {torch.cuda.device_count()} cards: data-parallel "

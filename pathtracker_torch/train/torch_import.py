@@ -17,7 +17,13 @@ pathtracker_tpu/train/torch_import.py::export_reference_state_dict
     target_conv_kernel    -> target_conv.weight    HWIO    -> OIHW
     readout_dense_kernel  -> readout_dense.weight  [in,out] -> [out,in]
 
-The result loads into the port's InT with ``strict=True``.
+The same rules serve ``fc``, the hGRU family, ``gru`` and ``convlstm``,
+whose modules are named after the reference's state_dict keys too
+(``conv0``, ``unit1.Wx<g>``, ``bn``, ``conv6``; ``unit1.conv_<g>``); the
+port adds rules where the JAX package's export has none or gives a layout
+no torch module takes: ClockHGRU's ``preproc_bn_*`` and ``clock_rate``,
+FC's ``readout_*`` (a Linear), and hgru_v2's 1x1 ``target_conv``.
+The result loads into the port's model with ``strict=True``.
 ``to_jax_params`` is the inverse: a ``state_dict`` (or any {name: tensor}
 keyed like one, such as gradients) back to JAX names and layouts.
 
@@ -56,6 +62,13 @@ _EXPORT_RULES = [
     (re.compile(r"^conv6_bias$"), lambda m: "conv6.bias"),
     (re.compile(r"^bn_scale$"), lambda m: "bn.weight"),
     (re.compile(r"^bn_bias$"), lambda m: "bn.bias"),
+    # ClockHGRU's preproc BN and clock rate, FC's dense readout: no rule of
+    # the JAX package's export covers them (its export raises on them).
+    (re.compile(r"^preproc_bn_scale$"), lambda m: "preproc_bn.weight"),
+    (re.compile(r"^preproc_bn_bias$"), lambda m: "preproc_bn.bias"),
+    (re.compile(r"^clock_rate$"), lambda m: "clock_rate"),
+    (re.compile(r"^readout_(kernel|bias)$"),
+     lambda m: "readout." + ("weight" if m.group(1) == "kernel" else "bias")),
     (re.compile(r"^bn(\d+)_scale$"), lambda m: f"unit1.bn.{m.group(1)}.weight"),
     (re.compile(r"^bn(\d+)_bias$"), lambda m: f"unit1.bn.{m.group(1)}.bias"),
     (re.compile(r"^readout_conv_kernel$"), lambda m: "readout_conv.weight"),
@@ -93,7 +106,9 @@ def export_reference_state_dict(params: dict) -> dict:
                 key.endswith(".weight") and key.startswith("unit1.")
                 and arr.ndim == 2 and "dense" not in key):
             arr = arr.T[:, :, None, None]  # [I,O] matmul -> [O,I,1,1] conv
-        elif key == "readout_dense.weight":
+        elif key == "target_conv.weight" and arr.ndim == 2:
+            arr = arr.T[:, :, None, None]  # hgru_v2's 1x1 [C+2,1] -> [1,C+2,1,1]
+        elif key in ("readout_dense.weight", "readout.weight"):
             arr = arr.T  # [in,out] -> [out,in]
         elif arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
@@ -109,6 +124,8 @@ _IMPORT_RULES = [
     (re.compile(r"^unit1\.bn\.(\d+)\.bias$"), lambda m: f"bn{m.group(1)}_bias"),
     (re.compile(r"^bn\.weight$"), lambda m: "bn_scale"),
     (re.compile(r"^bn\.bias$"), lambda m: "bn_bias"),
+    (re.compile(r"^preproc_bn\.weight$"), lambda m: "preproc_bn_scale"),
+    (re.compile(r"^clock_rate$"), lambda m: "clock_rate"),
     (re.compile(r"^unit1\.(w_inh|w_exc|alpha|mu|gamma|kappa|w)$"), lambda m: m.group(1)),
     (re.compile(r"^(?:unit1\.)?([A-Za-z_0-9]+)\.weight$"), lambda m: f"{m.group(1)}_kernel"),
     (re.compile(r"^(?:unit1\.)?([A-Za-z_0-9]+)\.bias$"), lambda m: f"{m.group(1)}_bias"),
@@ -128,9 +145,9 @@ def _jax_entry(key: str, value) -> tuple[str, np.ndarray]:
         raise ValueError(f"no JAX counterpart for state_dict key {key!r}")
     if key == "preproc.weight":
         arr = arr[:, :, 0, 0, 0].T  # [C,3,1,1,1] -> [3,C]
-    elif key == "readout_dense.weight":
-        arr = arr.T  # [out,in] -> [in,out]
-    elif arr.ndim == 4 and arr.shape[2:] == (1, 1) and key != "target_conv.weight":
+    elif arr.ndim == 2:
+        arr = arr.T  # Linear [out,in] -> [in,out]
+    elif arr.ndim == 4 and arr.shape[2:] == (1, 1):
         arr = arr[:, :, 0, 0].T  # [O,I,1,1] conv -> [I,O] matmul
     elif arr.ndim == 4:
         arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO

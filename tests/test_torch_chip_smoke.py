@@ -69,3 +69,32 @@ def test_instance_names_a_profiled_kernel_as_resource_lines_does():
         "corr_fwd_kernel<1, 15>"
     assert chip_smoke._instance("void (anonymous namespace)::k1_kernel(float const*)") == \
         "k1_kernel"
+
+
+def test_viz_launch_record_and_signed_map(monkeypatch):
+    """Phase 14 reads each attribution step's launches from a wrapper, and
+    compares the fused and f32 maps as pos - neg per clip."""
+    import torch
+
+    class Kernel:
+        launches = 0
+
+    kernels = [Kernel() for _ in range(6)]
+    fake = type("F", (), {"KERNELS": kernels})
+    record = []
+
+    def step(n):
+        for k in kernels[:3]:
+            k.launches += 2 * n
+        for k in kernels[3:]:
+            k.launches += n
+        return n
+
+    wrapped = chip_smoke._recorded_launches(fake, record)(step)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)  # no card here
+    assert wrapped(4) == 4 and wrapped(4) == 4
+    assert record == [[8, 8, 8, 4, 4, 4]] * 2
+    pos = torch.tensor([[[1.0, 0.0]], [[0.0, 2.0]]])
+    neg = torch.tensor([[[0.0, 3.0]], [[1.0, 0.0]]])
+    got = chip_smoke._signed(pos, neg)
+    assert got.dtype == torch.float64 and got.tolist() == [[1.0, -3.0], [-1.0, 2.0]]

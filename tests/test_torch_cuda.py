@@ -709,3 +709,98 @@ def test_cuda_resident_window_refuses_cpu_clips(cuda):
     with pytest.raises(ValueError, match="resident clips on cpu"):
         graphed(torch.zeros((16, 4, 32, 32, 3), dtype=torch.uint8), labels)
     assert not graphed.graphs
+
+
+VIZ_ROWS = 40 * 32 * 32  # viz_InT.sh's batch of 40: 40,960 rows
+
+
+@pytest.mark.gpu
+def test_cuda_backward_kernels_match_plain_at_the_viz_rows(cuda):
+    """The three backward wrappers at the viz path's 40,960 rows, K1 without
+    the attention map's cotangent (the case the viz step launches), at
+    test_cuda_backward_kernels_match_plain's tolerances."""
+    test_cuda_backward_kernels_match_plain(cuda, VIZ_ROWS)
+
+
+@pytest.mark.gpu
+def test_cuda_viz_step_launches_every_k1_k3_kernel_once_a_frame(cuda):
+    """attribution_step with the parameters frozen: the gradient reaches the
+    clips through every K1-K3 backward kernel, T launches each, and every
+    forward kernel runs 2T times (the forward and each step's recompute)."""
+    import numpy as np
+
+    from pathtracker_torch.eval.viz import attribution_step
+
+    t = 4
+    model = InT(dimensions=C, timesteps=t, kernel_size=3, dtype="bfloat16", device=cuda)
+    for p in model.parameters():
+        p.requires_grad_(False)
+    rng = np.random.default_rng(0)
+    raw = rng.integers(0, 256, (6, t, 32, 32, 3), dtype=np.uint8)
+    labels = rng.integers(0, 2, (6,), dtype=np.uint8)
+    for k in F.KERNELS:
+        k.launches = 0
+    out = attribution_step(model, "InT", raw, labels, np.full(6, 0.7, np.float32))
+    torch.cuda.synchronize()
+    assert [k.launches for k in F.FORWARD_KERNELS] == [2 * t] * 3
+    assert [k.launches for k in F.BACKWARD_KERNELS] == [t] * 3
+    pos, neg = out[3], out[4]
+    assert pos.shape == (6, 3, t, 32, 32) and bool(torch.isfinite(pos).all())
+    assert float(pos.max()) > 0 and float(neg.max()) > 0
+
+
+@pytest.mark.gpu
+def test_cuda_exported_program_is_exact_and_launches_the_kernels(cuda, tmp_path):
+    import numpy as np
+
+    from pathtracker_torch.eval import serve
+
+    t = 4
+    model = InT(dimensions=C, timesteps=t, kernel_size=3, dtype="bfloat16", device=cuda).eval()
+    path = str(tmp_path / "int.pt2")
+    serve.save_exported(serve.export_program(model, "InT", t), path)
+    served = serve.load_exported(path)
+    live = serve.make_inference_fn(model, "InT")
+    for batch in (8, 3):
+        x = np.random.default_rng(batch).integers(0, 256, (batch, t, 32, 32, 3), np.uint8)
+        for k in F.KERNELS:
+            k.launches = 0
+        got = served(x)
+        torch.cuda.synchronize()
+        assert [k.launches for k in F.FORWARD_KERNELS] == [t] * 3
+        assert got.is_cuda and torch.equal(got, live(x))
+
+
+@pytest.mark.gpu
+def test_cuda_rbp_step_runs_the_eager_cell(cuda):
+    """--algo rbp --bf16 at 32 channels: no K1-K3 launch, finite gradients,
+    the Neumann terms counted."""
+    import numpy as np
+
+    from pathtracker_torch.ops import rbp
+    from pathtracker_torch.train.steps import make_optimizer, make_train_step
+
+    model = InT(dimensions=C, timesteps=4, kernel_size=3, dtype="bfloat16",
+                grad_method="rbp", device=cuda)
+    assert not model.use_fused
+    step = make_train_step(model, "InT", make_optimizer(3e-4))
+    rng = np.random.default_rng(0)
+    for k in F.KERNELS:
+        k.launches = 0
+    rbp.neumann_rbp.terms.clear()
+    stats = step(rng.integers(0, 256, (4, 4, 32, 32, 3), np.uint8),
+                 rng.integers(0, 2, (4,), np.uint8))
+    assert [k.launches for k in F.KERNELS] == [0] * 6
+    assert np.isfinite(stats["loss"]) and len(rbp.neumann_rbp.terms) == 1
+
+
+@pytest.mark.gpu
+def test_cuda_resident_windows_refuse_rbp(cuda):
+    from pathtracker_torch.data.resident import make_resident_train_step
+    from pathtracker_torch.train.steps import make_optimizer
+
+    model = InT(dimensions=C, timesteps=4, kernel_size=3, dtype="bfloat16",
+                grad_method="rbp", device=cuda)
+    with pytest.raises(ValueError, match="rbp"):
+        make_resident_train_step(model, "InT", make_optimizer(1e-3), n_clips=8,
+                                 batch_size=4, fused_steps=4)

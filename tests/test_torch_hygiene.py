@@ -88,3 +88,13 @@ def test_numerics_flags_are_pinned():
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction is False
+
+
+def test_the_import_check_covers_every_module_of_the_slices():
+    """The modules each slice added are among those the import check loads
+    with JAX blocked (a rename or a move would drop one silently)."""
+    mods = set(_modules())
+    for name in ("eval.greedy", "eval.viz", "eval.serve", "ops.rbp", "ops.penalty",
+                 "ops.gabor", "models.hgru", "models.convgru", "models.convlstm",
+                 "models.int_circuit", "ops.int_fused", "train.torch_import"):
+        assert f"pathtracker_torch.{name}" in mods, name

@@ -124,7 +124,7 @@ def test_registry_and_engine_surface():
         m = tregistry.model_selector(name, timesteps=2, fb_kernel_size=3,
                                      dimensions=8, device="cpu")
         assert not m.use_fused
-    for name in ("fc", "hgru", "r3d", "slowfast", "timesformer"):
+    for name in ("stlstm", "lrcn", "r3d", "slowfast", "timesformer"):
         with pytest.raises(NotImplementedError, match="later slice"):
             tregistry.model_selector(name, timesteps=2, device="cpu")
     with pytest.raises(NotImplementedError, match="Model not found"):
@@ -133,9 +133,9 @@ def test_registry_and_engine_surface():
                                  fb_kernel_size=3)
     m = tengine.model_selector(args, 2, device="cpu")
     assert m.mxu == torch.bfloat16 and m.use_fused is False  # 8 channels
-    with pytest.raises(NotImplementedError, match="RBP"):
-        tengine.model_selector(types.SimpleNamespace(model="InT", algo="rbp"), 2,
-                               device="cpu")
+    rbp = tengine.model_selector(types.SimpleNamespace(model="InT", algo="rbp"), 2,
+                                 device="cpu")
+    assert rbp.grad_method == "rbp" and not rbp.use_fused
     x = torch.zeros(1, 3, 2, 4, 4)
     with torch.no_grad():
         logit, states, gates = tengine.model_step(m, x, "InT", test=True)
@@ -143,9 +143,9 @@ def test_registry_and_engine_surface():
 
 
 def test_engine_algo_as_jax():
-    """--algo matters in the recurrent family only: InT builds under 'bptt'
-    and 'Testing' (what the eval scripts set), raises under 'rbp' until the
-    port has RBP; rntsm ignores it. The JAX package builds the same three."""
+    """--algo matters in the recurrent family only: InT builds under 'bptt',
+    'Testing' (what the eval scripts set) and 'rbp'; rntsm ignores it; the
+    other recurrent models refuse 'rbp'. The JAX package does the same."""
     from pathtracker_tpu import engine as jengine
 
     def args(model, algo):
@@ -157,5 +157,9 @@ def test_engine_algo_as_jax():
         m = tengine.model_selector(args(model, algo), 2, device="cpu")
         assert isinstance(m, torch.nn.Module), (model, algo)
     jengine.model_selector(args("InT", "rbp"), 2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tengine.model_selector(args("InT", "rbp"), 2, device="cpu")
+    assert tengine.model_selector(args("InT", "rbp"), 2, device="cpu").grad_method == "rbp"
+    for model in ("hgru", "gru"):
+        with pytest.raises(NotImplementedError, match="InT"):
+            jengine.model_selector(args(model, "rbp"), 2)
+        with pytest.raises(NotImplementedError, match="InT"):
+            tengine.model_selector(args(model, "rbp"), 2, device="cpu")

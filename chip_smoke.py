@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive pathtracker_torch's serving, training, eval, training-loop,
-resident-window, attribution, export and RBP paths and the recurrent zoo on
-one CUDA card (an H100) and hold every CUDA kernel on those paths against its
-plain PyTorch version.
+resident-window, attribution, export and RBP paths, the recurrent zoo and
+the video ResNets on one CUDA card (an H100) and hold every CUDA kernel on
+those paths against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -147,7 +147,20 @@ Phases, printed in order; any failure exits non-zero before the last line:
      smaller rate of ZOO_RATES) and one request;
      ConvLSTM through its direct contract with the Jacobian penalty (BPTT)
      and with RBP;
- 17. one JSON line naming every kernel with its numbers (launches summed over
+ 17. the rest of the recurrent zoo (stlstm, fflstm, lrcn, lrcn_last, ffnet)
+     and the video ResNets (r3d, mc3, r2plus1, nostride_r3d,
+     nostride_r3d_pos, nostride_r3d_cc, nostride_video_cc_small) at the
+     registry's width: for each, the card's f32 logits against the CPU's
+     from the same weights (batch 2, T=8); 3 Adam steps on one batch of 32
+     rendered clips (T=64) through make_train_step (ffnet at the smaller
+     rate of ZOO_RATES), a falling loss, and 3 requests (fflstm: 1) through
+     make_inference_fn, scores in [0, 1]; --bf16 for r3d and nostride_r3d
+     with its logits against f32; step median, request p50, clips/s, peak
+     memory and the batch used (halved while it does not fit), beside the
+     card's name and power limit; python -m pathtracker_torch.train with
+     --model r3d and lrcn for one capped epoch and the eval CLI on the
+     rolling checkpoint; no csrc kernel launched; the phase's seconds;
+ 18. one JSON line naming every kernel with its numbers (launches summed over
      the main paths, with each path's count beside).
 The last line is {"ok": true, "device": {...}}. It needs a CUDA card and
 the repository beside it; without either it exits non-zero and prints no
@@ -374,8 +387,42 @@ ZOO_BATCH, ZOO_STEPS, CONVLSTM_T = 32, 3, 8
 # --clip-seed 31 (T=16, batch 8, CPU) gives 0.662148 -> 1.122506 -> 0.685124
 # in JAX and 0.662148 -> 1.122510 -> 0.685123 in the port at 3e-4, and a
 # falling loss in both at 3e-6 (from JAX's init both fall at 3e-4: the jump
-# belongs to the init and the batch, not to either package).
-ZOO_RATES = {"gru": 3e-6}
+# belongs to the init and the batch, not to either package). ffnet (phase
+# 17) likewise: its last Linear reads 2*T*32*32 features, and at 3e-4 its
+# loss rose on the card (0.770 -> 2.078 -> 4.175, batch 32, T=64) and rises
+# in both packages from the port's init (--model ffnet --init port --length
+# 8 --batch 4 --clip-seed 33: 0.754525 -> 0.985580 -> 2.193712 in JAX,
+# 0.754526 -> 0.985621 -> 2.191448 in the port), and falls in both at 3e-6
+# (0.754525 -> 0.152693 -> 0.040884 and 0.754526 -> 0.152712 -> 0.040886);
+# from JAX's init both fall at 3e-4 (0.745114 -> 0.594537 -> 0.244087 and
+# 0.745114 -> 0.594875 -> 0.216529).
+ZOO_RATES = {"gru": 3e-6, "ffnet": 3e-6}
+# Phase 17: the rest of the recurrent zoo and the video ResNets at the
+# registry's width on phase 16's rendered clips (T=64, batch 32; a name
+# that does not fit halves its batch), f32, and --bf16 for RZOO_BF16.
+RZOO_MODELS = ("stlstm", "fflstm", "lrcn", "lrcn_last", "ffnet", "r3d", "mc3", "r2plus1",
+               "nostride_r3d", "nostride_r3d_pos", "nostride_r3d_cc",
+               "nostride_video_cc_small")
+RZOO_BF16 = ("r3d", "nostride_r3d")
+RZOO_REQUESTS = 3
+# fflstm re-feeds its T*H*W-token sequence T times through a 2-layer
+# bidirectional LSTM: ~8.4 M sequential cell steps a T=64 forward, so
+# cuDNN's step latency sets its time (~6.6 s a request, ~18 s a step on the
+# H100: PERF.md); it takes one request.
+RZOO_FFLSTM_REQUESTS = 1
+# The card's f32 logits against the port's own CPU logits from the same
+# weights (cuDNN's conv3d and LSTM against the CPU's), batch 2, T=8: f32
+# sums in another order, held at the f32 parity bound of
+# tests/test_int_parity.py:93.
+RZOO_PARITY_BATCH, RZOO_PARITY_T, RZOO_PARITY_ATOL, RZOO_PARITY_RTOL = 2, 8, 1e-3, 5e-3
+# bf16 logits against f32 from the same init on the card: every conv, BN and
+# residual output rounded to bf16 (2^-8 relative) through ~20 layers; on the
+# CPU at one block a stage the gap measured 8.0e-3 on logits of 0.09-0.28
+# (tests/test_torch_video_resnet.py).
+RZOO_BF16_ATOL = 2e-2
+# The CLI: one capped epoch of RZOO_CLI_STEPS steps on a rendered root of
+# two batches a split, then the eval CLI on the rolling checkpoint.
+RZOO_CLI, RZOO_CLI_STEPS = ("r3d", "lrcn"), 2
 
 
 def fail(msg: str):
@@ -2467,10 +2514,10 @@ def export_phase(F, kernel_rows: list[dict], serve_p50_ms) -> None:
           f"{TIMED_REQUESTS} each), phase 4's fused p50 {serve_p50_ms:.2f} ms", flush=True)
 
 
-def _zoo_batch(batch, seed):
+def _zoo_batch(batch, seed, length=None):
     from pathtracker_torch.data.pathtracker import render_batch
 
-    clips, labels = render_batch(seed, batch, TIMESTEPS, n_distractors=DISTRACTORS,
+    clips, labels = render_batch(seed, batch, length or TIMESTEPS, n_distractors=DISTRACTORS,
                                  dot_size=DOT_SIZE)
     dev = torch.device(DEVICE)
     return torch.from_numpy(clips).to(dev), torch.from_numpy(labels).to(dev)
@@ -2583,6 +2630,150 @@ def rbp_zoo_phase(F, loop_ms) -> None:
               flush=True)
 
 
+def _rzoo_model(name: str, length: int, bf16: bool = False, device=DEVICE):
+    from pathtracker_torch import engine
+
+    args = SimpleNamespace(model=name, algo="bptt", bf16=bf16)
+    return engine.model_selector(args, length, device=device)
+
+
+def _rzoo_parity(serve, name: str) -> float:
+    """The card's f32 logits against the CPU's from the same weights, at
+    batch RZOO_PARITY_BATCH, T=RZOO_PARITY_T; the largest gap."""
+    import copy
+
+    cpu = _rzoo_model(name, RZOO_PARITY_T, device="cpu")
+    card = copy.deepcopy(cpu).to(DEVICE)
+    clips = _zoo_batch(RZOO_PARITY_BATCH, 40, RZOO_PARITY_T)[0].cpu()
+    want = serve.make_inference_fn(cpu, name, probs=False)(clips)
+    got = serve.make_inference_fn(card, name, probs=False)(clips).cpu()
+    if not torch.allclose(got, want, atol=RZOO_PARITY_ATOL, rtol=RZOO_PARITY_RTOL):
+        fail(f"{name}: card logits {got.tolist()} against the CPU's {want.tolist()}")
+    return float((got - want).abs().max())
+
+
+def _rzoo_run(serve, name: str, batch, bf16: bool = False):
+    """ZOO_STEPS Adam steps on one batch through make_train_step, then
+    requests through make_inference_fn on the same clips (RZOO_REQUESTS;
+    fflstm RZOO_FFLSTM_REQUESTS): (losses, step seconds, request seconds,
+    peak bytes, batch). Halves the batch while it does not fit."""
+    from pathtracker_torch.models import registry
+    from pathtracker_torch.train.steps import make_optimizer, make_train_step
+
+    n_requests = RZOO_FFLSTM_REQUESTS if name == "fflstm" else RZOO_REQUESTS
+    rate = ZOO_RATES.get(name, LEARNING_RATE)
+    prep = {"coord_channels": registry.needs_coord_channels(name)}
+    while True:
+        labels = batch[1]
+        try:
+            model = _rzoo_model(name, TIMESTEPS, bf16).train()
+            step = make_train_step(model, name, make_optimizer(rate), prepare_kwargs=prep)
+            losses, steps, peak = _train_steps(step, batch, ZOO_STEPS)
+            infer = serve.make_inference_fn(model.eval(), name)
+            requests = []
+            for _ in range(n_requests):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                scores = infer(batch[0])
+                torch.cuda.synchronize()
+                requests.append(time.perf_counter() - t)
+            break
+        except torch.cuda.OutOfMemoryError:
+            model = step = infer = None
+            torch.cuda.empty_cache()
+            if len(labels) == 1:
+                raise
+            print(f"zoo {name}: batch {len(labels)} does not fit; halved", flush=True)
+            batch = (batch[0][:len(labels) // 2], batch[1][:len(labels) // 2])
+    if scores.shape != (len(labels),) or not bool(
+            (torch.isfinite(scores) & (scores >= 0) & (scores <= 1)).all()):
+        fail(f"zoo {name}: request scores {scores}")
+    return losses, steps, requests, max(peak, torch.cuda.max_memory_allocated()), len(labels)
+
+
+def _rzoo_cli(name: str, root: str) -> str:
+    """python -m pathtracker_torch.train --model <name>, one capped epoch,
+    then the eval CLI on its rolling checkpoint; a line of what they gave."""
+    from pathtracker_torch.eval import test_model
+    from pathtracker_torch.train import loop
+
+    common = ["--model", name, "--name", f"p17_{name}", "--length", str(TIMESTEPS),
+              "--speed", "1", "--dist", str(DISTRACTORS), "-b", str(ZOO_BATCH)]
+    t0 = time.perf_counter()
+    result = loop.main(loop.parser.parse_args(
+        common + ["--epochs", "1", "--results-dir", os.path.join(root, "runs")]),
+        max_steps_per_epoch=RZOO_CLI_STEPS)
+    train_s = time.perf_counter() - t0
+    losses = result["train_log"]["loss"]
+    rolling = os.path.join(result["results_folder"], "saved_models", ROLLING_NAME)
+    if len(losses) != RZOO_CLI_STEPS or not np.all(np.isfinite(losses)) or not os.path.exists(
+            rolling):
+        fail(f"zoo CLI {name}: losses {losses}, rolling checkpoint {os.path.exists(rolling)}")
+    t0 = time.perf_counter()
+    acc, loss = test_model.evaluate_model(
+        os.path.join(root, "eval", name), test_model.parser.parse_args(common + ["--ckpt", rolling]),
+        prep_gifs=0, dist=DISTRACTORS, speed=1, length=TIMESTEPS)
+    if not (0.0 <= acc <= 1.0 and np.isfinite(loss)):
+        fail(f"zoo CLI {name}: eval accuracy {acc}, loss {loss}")
+    return (f"{RZOO_CLI_STEPS} steps of batch {ZOO_BATCH} in {train_s:.2f} s (losses "
+            f"{' '.join(f'{v:.4f}' for v in losses)}), eval of the rolling checkpoint "
+            f"{time.perf_counter() - t0:.2f} s (accuracy {acc:.3f}, loss {loss:.4f})")
+
+
+def rzoo_phase(F, Co, card: str) -> None:
+    """The rest of the recurrent zoo and the video ResNets: for each name the
+    card against the CPU at T=8, 3 steps on one batch and RZOO_REQUESTS
+    requests at the registry's width; --bf16 for RZOO_BF16 with its logits
+    against f32; the train and eval CLIs for RZOO_CLI."""
+    from pathtracker_torch.data import registry
+    from pathtracker_torch.eval import serve
+
+    t_phase = time.perf_counter()
+    for k in (*F.KERNELS, *Co.KERNELS):
+        k.launches = 0
+    batch = _zoo_batch(ZOO_BATCH, 33)
+    for name in RZOO_MODELS:
+        gap = _rzoo_parity(serve, name)
+        runs = [(False, *_rzoo_run(serve, name, batch))]
+        if name in RZOO_BF16:
+            logits = [serve.make_inference_fn(_rzoo_model(name, TIMESTEPS, bf16), name,
+                                              probs=False)(batch[0]) for bf16 in (False, True)]
+            bf16_gap = float((logits[1] - logits[0]).abs().max())
+            if not bf16_gap <= RZOO_BF16_ATOL:
+                fail(f"zoo {name}: --bf16 logits {bf16_gap:.3g} from f32 (at most "
+                     f"{RZOO_BF16_ATOL})")
+            runs.append((True, *_rzoo_run(serve, name, batch, bf16=True)))
+        for bf16, losses, steps, requests, peak, used in runs:
+            if not losses[-1] < losses[0]:
+                fail(f"zoo {name}: the loss on the repeated batch did not fall: {losses}")
+            print(f"zoo {name}{' --bf16' if bf16 else ''} (T={TIMESTEPS}, batch {used}): "
+                  f"{ZOO_STEPS} Adam({ZOO_RATES.get(name, LEARNING_RATE):g}) steps, losses "
+                  f"{' '.join(f'{v:.4f}' for v in losses)}, step times {_ms(steps)} ms, "
+                  f"median {statistics.median(steps) * 1e3:.2f} ms, "
+                  f"{used / statistics.median(steps):.1f} clips/s; request p50 "
+                  f"{statistics.median(requests) * 1e3:.2f} ms ({_ms(requests)}), "
+                  f"{used / statistics.median(requests):.1f} clips/s; peak "
+                  f"{peak / 2**30:.2f} GiB; card vs CPU logits (batch {RZOO_PARITY_BATCH}, "
+                  f"T={RZOO_PARITY_T}) {gap:.3g}"
+                  + (f"; --bf16 logits {bf16_gap:.3g} from f32" if bf16 else "")
+                  + f"; {card}", flush=True)
+        torch.cuda.empty_cache()
+    os.makedirs(BUILD, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp, _environ(
+            PATHTRACKER_DATA_ROOT=os.path.join(tmp, "data"),
+            PATHTRACKER_DOT_SIZE=str(DOT_SIZE),
+            PATHTRACKER_SYNTH_TRAIN=str(2 * ZOO_BATCH),
+            PATHTRACKER_SYNTH_TEST=str(2 * ZOO_BATCH)):
+        registry.dataset_selector(DISTRACTORS, 1, TIMESTEPS)
+        for name in RZOO_CLI:
+            print(f"zoo CLI {name}: {_rzoo_cli(name, tmp)}", flush=True)
+    launched = [k.launches for k in (*F.KERNELS, *Co.KERNELS)]
+    if any(launched):
+        fail(f"zoo: a csrc kernel launched on the zoo's paths: {launched}")
+    print(f"zoo: phase 17 took {time.perf_counter() - t_phase:.2f} s; no csrc kernel "
+          "launched", flush=True)
+
+
 def resource_lines(log: str) -> list[str]:
     """'kernel: N registers, S bytes smem, spills' from ptxas -v's output."""
     out, name, spill = [], None, ""
@@ -2628,7 +2819,8 @@ def main() -> int:
     from pathtracker_torch.ops import correlation as Co
     from pathtracker_torch.ops import int_fused as F
 
-    print(card_line(), flush=True)
+    card = card_line()
+    print(card, flush=True)
 
     t0 = time.perf_counter()
     built = _native.build()
@@ -2664,6 +2856,8 @@ def main() -> int:
     export_phase(F, kernel_rows, serve_p50_ms)
     torch.cuda.empty_cache()
     rbp_zoo_phase(F, loop_ms)
+    torch.cuda.empty_cache()
+    rzoo_phase(F, Co, card)
     torch.cuda.empty_cache()
     for row in correlation_rows:  # not on the viz or export paths
         row["launches_viz"] = row["launches_export"] = 0

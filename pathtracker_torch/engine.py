@@ -1,7 +1,8 @@
 """Engine: model selection from parsed flags, forward-family dispatch, batch
 prep and checkpoint loading (pathtracker_tpu/engine.py), for the families
-the port builds: the recurrent InT family, ``fc``, the hGRU family and
-``gru`` and, of the 'torchvision' family, ``rntsm``. The
+the port builds: the recurrent family (InT, ``fc``, the hGRU family,
+``gru``, ``stlstm``, ``fflstm``, ``lrcn``, ``lrcn_last``, ``ffnet``) and,
+of the 'torchvision' family, ``rntsm`` and the video ResNets. The
 reference-compatible API of reference utils/engine.py:
 model_selector, model_step, prepare_data, dataset_selector, get_datasets,
 load_ckpt, plot_results, and the APIs its viz script called but its
@@ -25,7 +26,8 @@ from pathtracker_torch.models.registry import (MODEL_FAMILY, family,  # noqa: F4
                                                needs_coord_channels,
                                                model_selector as _build)
 from pathtracker_torch.train.checkpoint import load_params
-from pathtracker_torch.train.torch_import import state_dict_from_jax, to_jax_params
+from pathtracker_torch.train.torch_import import (layout_of, state_dict_from_jax,
+                                                  to_jax_params)
 
 SLOWFAST_ALPHA = 4  # slow pathway takes every 4th frame (reference utils/engine.py:52)
 
@@ -88,7 +90,9 @@ def model_step(model, imgs, model_name: str, test: bool = False,
     ``generator`` is the train step's, for models with stochastic layers;
     the ported models have none and ignore it. The 'torchvision' family's
     forward returns the logits only: its penalty is ones(1), its states and
-    gates None."""
+    gates None, and so are those of the recurrent models whose testmode
+    returns no maps (stlstm, fflstm, lrcn, lrcn_last, ffnet: (logit,
+    penalty), where the JAX package's eval fails to unpack them)."""
     fam = family(model_name)
     if fam == "torchvision":
         output = model(imgs)
@@ -100,7 +104,8 @@ def model_step(model, imgs, model_name: str, test: bool = False,
             f"{model_name!r}: the {fam} forward family comes with a later "
             "slice of pathtracker_torch")
     if test:
-        return model(imgs, testmode=True)
+        out = model(imgs, testmode=True)
+        return out if len(out) == 3 else (out[0], None, None)
     return model(imgs)
 
 
@@ -137,12 +142,10 @@ def load_ckpt(model, model_path: str, strict: bool = True):
     ``strict=False`` (the mode the reference viz script wanted) keeps the
     model's own values for parameters the checkpoint lacks and ignores the
     ones it has extra."""
-    from pathtracker_torch.models.tsm_resnet import TSMResNet
-
-    name = "rntsm" if isinstance(model, TSMResNet) else "InT"
-    params = load_params(model_path, template=lambda: to_jax_params(model.state_dict()),
+    state = model.state_dict()
+    params = load_params(model_path, template=lambda: to_jax_params(state),
                          strict=strict)
-    model.load_state_dict(state_dict_from_jax(name, params), strict=strict)
+    model.load_state_dict(state_dict_from_jax(layout_of(state), params), strict=strict)
     return model
 
 

@@ -2,9 +2,12 @@
 
 The port builds the InT family, the linear probe ``fc``, the hGRU family
 (``hgru``, ``hgru_v2``, ``clock_hgru``, ``clock_hgru_fixed``), the ConvGRU
-``gru``, the legacy-contract ``convlstm`` and ``rntsm`` (TSM-ResNet50 with
-MotionSqueeze); every other reference ``--model`` name raises
-``NotImplementedError`` naming the slice that ports it. MODEL_FAMILY mirrors the three forward-contract families of the
+``gru``, the legacy-contract ``convlstm``, the rest of the recurrent zoo
+(``stlstm``, ``fflstm``, ``lrcn``, ``lrcn_last``, ``ffnet``), ``rntsm``
+(TSM-ResNet50 with MotionSqueeze) and the video ResNets (``r3d``, ``mc3``,
+``r2plus1`` and the no-stride forks); SlowFast, ``slow`` and the
+transformers raise ``NotImplementedError`` naming the slice that ports
+them. MODEL_FAMILY mirrors the three forward-contract families of the
 reference's model_step (reference utils/engine.py:29-30,42-72):
   'recurrent'    forward(x) -> (logit, jv_penalty); testmode adds states/gates
   'torchvision'  forward(x) -> logit only
@@ -41,11 +44,16 @@ INT_VARIANTS = {
     "InT_tanh": {"nl": "tanh"},
 }
 
-_RECURRENT_ZOO = ("stlstm", "fflstm", "lrcn", "lrcn_last", "ffnet")
+RECURRENT_ZOO = ("stlstm", "fflstm", "lrcn", "lrcn_last", "ffnet")
 ZOO = ("fc", "hgru", "hgru_v2", "clock_hgru", "clock_hgru_fixed", "gru",
-       "convlstm")
-_FEEDFORWARD_ZOO = tuple(n for n in MODEL_FAMILY if n != "rntsm") + (
-    "timesformer", "performer", "lambda")
+       "convlstm") + RECURRENT_ZOO
+VIDEO_RESNETS = ("r3d", "mc3", "r2plus1", "nostride_r3d", "nostride_r3d_pos",
+                 "nostride_r3d_cc", "nostride_video_cc_small")
+# The torchvision trunks whose Kinetics weights train/loop.py's
+# load_pretrained imports; --pretrained on any other name only selects the
+# pretrained input normalization.
+TORCHVISION_PRETRAINED = ("r3d", "mc3", "r2plus1")
+_LATER = ("slowfast", "slowfast_nl", "slow", "timesformer", "performer", "lambda")
 
 
 def family(model_name: str) -> str:
@@ -67,18 +75,14 @@ def model_selector(model_name: str, timesteps: int, fb_kernel_size: int = 7,
     (``None`` means cuda)."""
     from pathtracker_torch.models import int_circuit
 
-    if model_name in _RECURRENT_ZOO:
+    if model_name in _LATER:
         raise NotImplementedError(
-            f"{model_name!r} is not ported yet: the rest of the recurrent zoo "
-            "comes with a later slice of pathtracker_torch (ROADMAP.md queue 1 "
-            "item 15)")
-    if model_name in _FEEDFORWARD_ZOO:
-        raise NotImplementedError(
-            f"{model_name!r} is not ported yet: the feedforward zoo comes with "
-            "a later slice of pathtracker_torch (ROADMAP.md queue 1 item 12)")
-    if model_name not in INT_VARIANTS and model_name not in ZOO + ("rntsm",):
+            f"{model_name!r} is not ported yet: SlowFast and the transformers "
+            "come with a later slice of pathtracker_torch (ROADMAP.md queue 1 "
+            "item 12)")
+    if model_name not in INT_VARIANTS and model_name not in ZOO + VIDEO_RESNETS + ("rntsm",):
         raise NotImplementedError(f"Model not found: {model_name!r}")
-    if pretrained:
+    if pretrained and model_name not in TORCHVISION_PRETRAINED:
         warnings.warn(
             "--pretrained: no pretrained weights exist for "
             f"{model_name!r}; using the pretrained input normalization only.",
@@ -106,6 +110,25 @@ def model_selector(model_name: str, timesteps: int, fb_kernel_size: int = 7,
     if model_name == "convlstm":
         from pathtracker_torch.models import convlstm
         return convlstm.ConvLSTM(timesteps=timesteps, device=device, **kwargs)
+    if model_name == "stlstm":
+        from pathtracker_torch.models import stlstm
+        return stlstm.FFSTLSTM(timesteps=timesteps, device=device, **kwargs)
+    if model_name == "fflstm":
+        from pathtracker_torch.models import fflstm
+        return fflstm.FFLSTM(timesteps=timesteps, device=device, **kwargs)
+    if model_name in ("lrcn", "lrcn_last"):
+        from pathtracker_torch.models import lrcn
+        cls = lrcn.LRCNStyle if model_name == "lrcn" else lrcn.LRCNStyleLast
+        return cls(timesteps=timesteps, device=device, **kwargs)
+    if model_name == "ffnet":
+        from pathtracker_torch.models import ffnet
+        # The JAX module reads the clip length from its input; a torch
+        # module needs it for its Linear.
+        return ffnet.FFConvNet(timesteps=timesteps, device=device, **kwargs)
+    if model_name in VIDEO_RESNETS:
+        from pathtracker_torch.models import video_resnet
+        return video_resnet.build(model_name, timesteps=timesteps, device=device,
+                                  **kwargs)
     return int_circuit.InT(dimensions=dimensions, timesteps=timesteps,
                            kernel_size=fb_kernel_size, device=device,
                            **INT_VARIANTS[model_name], **kwargs)

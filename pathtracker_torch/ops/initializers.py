@@ -1,5 +1,5 @@
 """Parameter initializers with the reference's torch semantics
-(pathtracker_tpu/ops/initializers.py:29-110), for the InT family.
+(pathtracker_tpu/ops/initializers.py:29-110), for the InT family and the zoo.
 
 Every initializer is ``init(generator, shape) -> f32 CPU tensor`` over
 torch's own layouts (OIHW convs, [out, in] linears), drawing from the
@@ -59,6 +59,15 @@ def chrono_gate_bias(timesteps: int):
     def init(gen, shape):
         hi = max(float(timesteps - 1), 1.0 + 1e-6)
         return torch.log(torch.empty(shape).uniform_(1.0, hi, generator=gen))
+
+    return init
+
+
+def normal(stddev: float):
+    """N(0, stddev^2)."""
+
+    def init(gen, shape):
+        return stddev * torch.randn(shape, generator=gen)
 
     return init
 

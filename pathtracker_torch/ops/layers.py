@@ -77,6 +77,48 @@ def conv2d(x, weight, bias=None, mxu_dtype=None, keep_mxu_dtype: bool = False,
     return y
 
 
+def _triple(v) -> tuple:
+    return (v,) * 3 if isinstance(v, int) else tuple(v)
+
+
+def _same_pads(size: int, k: int, stride: int, dilation: int) -> tuple[int, int]:
+    """XLA's 'SAME' padding of one dimension: the output keeps ceil(size /
+    stride) positions, and the odd extra element of padding goes high."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + (k - 1) * dilation + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv3d(x, weight, bias=None, stride=1, padding="SAME", dilation=1):
+    """NTHWC conv of ``x`` with an OITHW ``weight`` -> NTHWC
+    (pathtracker_tpu/ops/layers.py:120-141, THWIO there). ``padding`` is
+    'SAME' (XLA's, as ``_same_pads``), an int, or one int per dimension
+    (symmetric). A bf16 ``x`` runs the conv in bf16 with f32 accumulation
+    and a bf16 output, emulated on the CPU as f32 math on the bf16
+    operands, rounded once."""
+    stride, dilation = _triple(stride), _triple(dilation)
+    if padding == "SAME":
+        pads = [_same_pads(n, k, s, d) for n, k, s, d in
+                zip(x.shape[1:4], weight.shape[2:], stride, dilation)]
+    else:
+        pads = [(p, p) for p in _triple(padding)]
+    # A contiguous NTHWC x is a channels_last_3d NCDHW view: oneDNN's fast
+    # path on the CPU (an NCDHW-contiguous input takes a slow one there).
+    x_ncdhw = x.contiguous().permute(0, 4, 1, 2, 3)
+    if any(lo != hi for lo, hi in pads):
+        x_ncdhw = F.pad(x_ncdhw, [p for lo_hi in reversed(pads) for p in lo_hi])
+        pads = [(0, 0)] * 3
+    args = (None, stride, [lo for lo, _ in pads], dilation)
+    if x.dtype == torch.bfloat16 and not x.is_cuda:
+        y = F.conv3d(x_ncdhw.float(), weight.to(x.dtype).float(), *args).to(x.dtype)
+    else:
+        y = F.conv3d(x_ncdhw, weight.to(x.dtype), *args)
+    y = y.permute(0, 2, 3, 4, 1)
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
+
+
 def batch_norm(x, scale, bias, eps: float = 1e-3):
     """Batch-statistics norm over all axes but the last (channel) axis:
     biased variance E[x²]−E[x]², statistics in f32 (layers.py:144-162)."""
@@ -87,6 +129,33 @@ def batch_norm(x, scale, bias, eps: float = 1e-3):
     inv = torch.rsqrt(mean2 - mean.square() + eps)
     return ((x - mean.to(x.dtype)) * (inv.to(x.dtype) * scale.to(x.dtype))
             + bias.to(x.dtype))
+
+
+def layer_norm_2d(x, scale, bias, eps: float = 1e-5):
+    """LayerNorm of NHWC ``x`` over each sample's (H, W, C), with ``scale``
+    and ``bias`` laid out [H, W, C] (layers.py:165-172): torch's
+    nn.LayerNorm([C, H, W]) on the NCHW view."""
+    dims = tuple(range(1, x.dim()))
+    mean = x.mean(dim=dims, keepdim=True)
+    var = (x - mean).square().mean(dim=dims, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * scale + bias
+
+
+def avg_pool2d(x, window: int = 2):
+    """'VALID' average pool of NHWC ``x``, stride = window (layers.py:188)."""
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), window).permute(0, 2, 3, 1)
+
+
+def max_pool3d(x, window: int = 2):
+    """'VALID' max pool of NTHWC ``x`` over (T, H, W), stride = window: the
+    models' ``lax.reduce_window(max)``."""
+    return F.max_pool3d(x.permute(0, 4, 1, 2, 3), window).permute(0, 2, 3, 4, 1)
+
+
+def avg_pool3d(x, window: int = 2):
+    """'VALID' average pool of NTHWC ``x`` over (T, H, W), stride = window:
+    the models' ``lax.reduce_window(add) / window**3``."""
+    return F.avg_pool3d(x.permute(0, 4, 1, 2, 3), window).permute(0, 2, 3, 4, 1)
 
 
 def max_pool2d(x, kernel: int = 3):

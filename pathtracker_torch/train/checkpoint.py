@@ -257,7 +257,8 @@ def load_checkpoint(path: str) -> dict:
 
 def load_params(path: str, template=None, strict: bool = True):
     """The params of a checkpoint in the JAX names and layouts: a flat dict
-    (InT family) or a nested one (``rntsm``); turn them into the port's
+    (InT family) or a nested one (``rntsm``, the video ResNets, stlstm's
+    cell); turn them into the port's
     state_dict with ``train.torch_import.state_dict_from_jax``.
 
     ``template`` is a params tree in the same names and layouts (e.g.
@@ -279,11 +280,10 @@ def load_params(path: str, template=None, strict: bool = True):
             # resnet_TSM (rntsm) or a plain torchvision ImageNet ResNet
             return torch_import.import_tsm_resnet_state_dict(
                 params, template, strict=strict)
-        if any(k.split("module.")[-1].startswith(("stem.", "layer1.")) for k in params):
-            raise NotImplementedError(
-                f"{path} is a torchvision video-ResNet checkpoint: that family "
-                "comes with a later slice of pathtracker_torch (ROADMAP.md "
-                "queue 1 item 12)")
+        if torch_import.looks_like_video_resnet_state_dict(params):
+            # torchvision's r3d/mc3/r2plus1 or the reference's forks of them
+            return torch_import.import_video_resnet_state_dict(
+                params, template, strict=strict)
         if torch_import.looks_like_slowfast_state_dict(params):
             raise NotImplementedError(
                 f"{path} is a SlowFast checkpoint: that family comes with a "

@@ -45,7 +45,9 @@ from pathtracker_torch.train import checkpoint as ckpt_lib
 from pathtracker_torch.train.steps import (build_lr_schedule, ema_params,
                                            make_eval_step, make_optimizer,
                                            make_train_step)
-from pathtracker_torch.train.torch_import import jax_leaves, to_jax_params
+from pathtracker_torch.train.torch_import import (import_video_resnet_state_dict,
+                                                  jax_leaves, state_dict_from_jax,
+                                                  to_jax_params)
 from pathtracker_torch.utils.earlystopping import EarlyStopping
 from pathtracker_torch.utils.meters import AverageMeter
 from pathtracker_torch.utils.opts import parser
@@ -170,10 +172,12 @@ _PRETRAINED_ALIASES = {
 
 def load_pretrained(model, model_name: str):
     """--pretrained: look for a locally provided torchvision video
-    checkpoint under $PATHTRACKER_PRETRAINED_DIR (default ./pretrained).
-    Without one, keep the initialized weights with a warning, as the JAX
-    package does; the video ResNets that take such weights come with a
-    later slice."""
+    checkpoint under $PATHTRACKER_PRETRAINED_DIR (default ./pretrained) and
+    import it into ``model`` in place (pathtracker_tpu/train/loop.py:138-175):
+    BN running statistics dropped, the Kinetics 400-class head skipped.
+    Without a file, keep the initialized weights with a warning. The
+    narrowed no-stride forks cannot take Kinetics weights (their widths
+    differ), so they, like every other model, warn and keep their init."""
     names = _PRETRAINED_FILES.get(model_name)
     if names is None:
         warnings.warn(
@@ -193,9 +197,14 @@ def load_pretrained(model, model_name: str):
             "Place the torchvision .pth there to load real weights.",
             stacklevel=2)
         return model
-    raise NotImplementedError(
-        f"--pretrained {path}: importing torchvision video-ResNet weights comes "
-        "with a later slice of pathtracker_torch (ROADMAP.md queue 1 item 12)")
+    state = ckpt_lib.load_checkpoint(path)
+    if isinstance(state, dict) and "state_dict" in state:
+        state = state["state_dict"]
+    print(f"Loading pretrained torchvision weights from {path}")
+    params = import_video_resnet_state_dict(
+        state, to_jax_params(model.state_dict()), strict=False)
+    model.load_state_dict(state_dict_from_jax(model_name, params))
+    return model
 
 
 def validate(val_loader, eval_step, args, results_folder, len_val_loader,

@@ -41,9 +41,20 @@ copied here:
     fc1_kernel [C,cls], fc1_bias  -> fc1.weight [cls,C,1], fc1.bias
 
 with conv kernels HWIO -> OIHW (a depthwise [k,k,1,C] becomes [C,1,k,k] by
-the same transpose). ``state_dict_from_jax`` picks the mapping by model
-name; ``to_jax_params`` takes either family's ``state_dict`` and tells them
-apart by their keys.
+the same transpose).
+
+The rest of the zoo (``stlstm``, ``fflstm``, ``lrcn``, ``lrcn_last``,
+``ffnet``) and the video ResNets map by the rule tables ``_ZOO_RULES`` and
+``_video_resnet_rules``, one (JAX path, state_dict key, layout) triple a
+parameter kind, read both ways: 3-D conv kernels THWIO <-> OITHW, 2-D ones
+HWIO <-> OIHW, dense kernels and LSTM weights [in, out] <-> [out, in],
+stlstm's LayerNorm affines [H, W, C] <-> [C, H, W]. The video ResNets'
+state_dict is torchvision's (``import_video_resnet_state_dict`` takes a
+torchvision checkpoint).
+
+``state_dict_from_jax`` picks the mapping by model name, or by a layout
+name of ``layout_of``; ``to_jax_params`` takes any family's ``state_dict``
+and tells the families apart by their keys (``layout_of``).
 """
 
 from __future__ import annotations
@@ -52,6 +63,8 @@ import re
 
 import numpy as np
 import torch
+
+from pathtracker_torch.models.registry import RECURRENT_ZOO, VIDEO_RESNETS
 
 _EXPORT_RULES = [
     (re.compile(r"^preproc_kernel$"), lambda m: "preproc.weight"),
@@ -158,11 +171,14 @@ def _jax_entry(key: str, value) -> tuple[str, np.ndarray]:
 
 def to_jax_params(state_dict: dict) -> dict:
     """The port's ``state_dict`` (or tensors keyed like it, such as
-    gradients) -> JAX params {name: f32 numpy array}, flat for the InT
-    family and nested for ``rntsm``, in the JAX names and layouts: the
-    inverse of ``export_reference_state_dict``."""
-    if looks_like_tsm_resnet_state_dict(state_dict):
+    gradients) -> JAX params {name: f32 numpy array}, flat or nested as the
+    JAX module keeps them, in the JAX names and layouts: the inverse of
+    ``state_dict_from_jax``."""
+    layout = layout_of(state_dict)
+    if layout == "tsm":
         return import_tsm_resnet_state_dict(state_dict)
+    if layout in ("zoo", "video_resnet"):
+        return _to_jax_by_rules(state_dict, _rules(layout, state_dict))
     return dict(_jax_entry(key, value) for key, value in state_dict.items())
 
 
@@ -273,11 +289,31 @@ def jax_leaves(tree: dict, prefix: str = ""):
             yield path, tree[key]
 
 
-def state_dict_from_jax(model_name: str, params: dict) -> dict:
-    """JAX params of ``model_name`` -> the port's ``state_dict``, by the
-    model's own mapping."""
-    if model_name == "rntsm":
+# model name -> its parameters' layout; every other name is "flat"
+LAYOUTS = {"rntsm": "tsm", **dict.fromkeys(RECURRENT_ZOO, "zoo"),
+           **dict.fromkeys(VIDEO_RESNETS, "video_resnet")}
+
+
+def layout_of(state_dict) -> str:
+    """The layout of a port ``state_dict`` (or of tensors keyed like one),
+    from its keys: "tsm", "video_resnet", "zoo" or "flat"."""
+    if looks_like_tsm_resnet_state_dict(state_dict):
+        return "tsm"
+    for layout in ("video_resnet", "zoo"):
+        rules = _rules(layout, state_dict)
+        if state_dict and all(_match(rules, key, 1) for key in state_dict):
+            return layout
+    return "flat"
+
+
+def state_dict_from_jax(model: str, params: dict) -> dict:
+    """JAX params -> the port's ``state_dict``, by the mapping of ``model``:
+    a model name, or a layout name of ``layout_of``."""
+    layout = LAYOUTS.get(model, model)
+    if layout == "tsm":
         return export_tsm_resnet_state_dict(params)
+    if layout in ("zoo", "video_resnet"):
+        return _from_jax_by_rules(params, _rules(layout, params))
     return export_reference_state_dict(params)
 
 
@@ -417,3 +453,191 @@ def import_tsm_resnet_state_dict(state_dict: dict, template: dict | None = None,
             node = node.setdefault(part, {})
         node[path[-1]] = arr
     return out
+
+
+# --- the rest of the zoo and the video ResNets: rule tables -----------------
+#
+# (JAX path, state_dict key, layout). A ``{field}`` matches letters and
+# digits (no '_', '.' or '/') and carries over to the other side; the first
+# rule that matches wins, in either direction. Layouts: None (the same
+# array), "conv" (kernel spatial dims + [I, O] <-> [O, I] + spatial dims),
+# "linear" ([in, out] <-> [out, in]) and "hwc" ([H, W, C] <-> [C, H, W]).
+
+_CELL = "SpatioTemporalLSTMCell_0"  # flax's name for stlstm's shared cell
+_ZOO_RULES = [
+    ("conv7_kernel", "conv7.weight", "linear"),  # ffnet's 1x1x1 conv to 2 channels
+    ("conv{i}_kernel", "conv{i}.weight", "conv"),
+    ("conv{i}_bias", "conv{i}.bias", None),
+    ("bn{i}_scale", "bn{i}.weight", None),
+    ("bn{i}_bias", "bn{i}.bias", None),
+    ("bn_scale", "bn.weight", None),
+    ("bn_bias", "bn.bias", None),
+    ("fc{i}_kernel", "fc{i}.weight", "linear"),
+    ("fc{i}_bias", "fc{i}.bias", None),
+    # ops/lstm.py: JAX <name>_l<k>[_rev]_{w,b}_{ih,hh} <-> nn.LSTM's tensors
+    ("{m}_l{k}_w_{g}", "{m}.weight_{g}_l{k}", "linear"),
+    ("{m}_l{k}_rev_w_{g}", "{m}.weight_{g}_l{k}_reverse", "linear"),
+    ("{m}_l{k}_b_{g}", "{m}.bias_{g}_l{k}", None),
+    ("{m}_l{k}_rev_b_{g}", "{m}.bias_{g}_l{k}_reverse", None),
+    (f"{_CELL}/conv_last_kernel", "unit1.conv_last.weight", "linear"),
+    (f"{_CELL}/conv_last_bias", "unit1.conv_last.bias", None),
+    (_CELL + "/conv_{g}_kernel", "unit1.conv_{g}.0.weight", "conv"),
+    (_CELL + "/conv_{g}_bias", "unit1.conv_{g}.0.bias", None),
+    (_CELL + "/conv_{g}_ln_scale", "unit1.conv_{g}.1.weight", "hwc"),
+    (_CELL + "/conv_{g}_ln_bias", "unit1.conv_{g}.1.bias", "hwc"),
+]
+
+
+def _bn_rules(jax_prefix: str, torch_prefix: str) -> list:
+    return [(f"{jax_prefix}_scale", f"{torch_prefix}.weight", None),
+            (f"{jax_prefix}_bias", f"{torch_prefix}.bias", None)]
+
+
+def _video_resnet_rules(r2plus1: bool) -> list:
+    """pathtracker_tpu/train/torch_import.py:234-312's names, both ways."""
+    if r2plus1:
+        stem = [("stem_s/kernel", "stem.0.weight", "conv"), *_bn_rules("stem_s/bn", "stem.1"),
+                ("stem_t/kernel", "stem.3.weight", "conv"), *_bn_rules("stem_t/bn", "stem.4")]
+    else:
+        stem = [("stem/kernel", "stem.0.weight", "conv"), *_bn_rules("stem/bn", "stem.1")]
+    blk, tv = "layer{l}_{b}", "layer{l}.{b}"
+    return stem + [
+        (blk + "/conv{c}/kernel", tv + ".conv{c}.0.weight", "conv"),
+        (blk + "/conv{c}/kernel_s", tv + ".conv{c}.0.0.weight", "conv"),
+        *_bn_rules(blk + "/conv{c}/bn", tv + ".conv{c}.0.1"),
+        (blk + "/conv{c}/kernel_t", tv + ".conv{c}.0.3.weight", "conv"),
+        *_bn_rules(blk + "/bn{c}", tv + ".conv{c}.1"),
+        (blk + "/ds_kernel", tv + ".downsample.0.weight", "conv"),
+        *_bn_rules(blk + "/ds_bn", tv + ".downsample.1"),
+        ("fc_kernel", "fc.weight", "linear"),
+        ("fc_bias", "fc.bias", None),
+        ("target_conv_kernel", "target_conv.weight", "conv"),
+        ("target_conv_bias", "target_conv.bias", None),
+    ]
+
+
+def _compile(rules: list) -> list:
+    """Each rule as (JAX regex, state_dict regex, JAX format, state_dict
+    format, layout)."""
+    def regex(fmt):
+        return re.compile(re.sub(r"\\\{(\w+)\\\}", r"(?P<\1>[A-Za-z0-9]+)", re.escape(fmt)))
+
+    return [(regex(j), regex(t), j, t, layout) for j, t, layout in rules]
+
+
+_ZOO = _compile(_ZOO_RULES)
+_VIDEO = {r2plus1: _compile(_video_resnet_rules(r2plus1)) for r2plus1 in (False, True)}
+
+
+def _rules(layout: str, tree) -> list:
+    """The compiled rules of ``layout`` ("zoo" or "video_resnet") for a JAX
+    tree or a state_dict (which tells (2+1)D's stem from the others)."""
+    if layout == "zoo":
+        return _ZOO
+    return _VIDEO["stem.3.weight" in tree or "stem_s" in tree]
+
+
+def _match(rules, name: str, side: int):
+    """(the other side's name, layout) of the first rule whose ``side``
+    (0: JAX path, 1: state_dict key) matches ``name``, or None."""
+    for rule in rules:
+        m = rule[side].fullmatch(name)
+        if m:
+            return rule[3 - side].format(**m.groupdict()), rule[4]
+    return None
+
+
+# A conv kernel moves between [O, I, *k] and [*k, I, O] in two copies, a 2-D
+# transpose and a swap of whole rows of O: ~3x faster than numpy's one
+# 5-D copy (r3d's checkpoint, weights and Adam's moments, ~4 s -> ~1.4 s).
+
+def _to_jax_layout(arr: np.ndarray, layout) -> np.ndarray:
+    if layout == "conv":
+        o, i, *k = arr.shape
+        rows = np.ascontiguousarray(arr.reshape(o, -1).T).reshape(i, -1, o)
+        return np.ascontiguousarray(rows.transpose(1, 0, 2)).reshape(*k, i, o)
+    if layout == "linear":
+        arr = arr.T
+    elif layout == "hwc":
+        arr = arr.transpose(1, 2, 0)
+    return np.ascontiguousarray(arr)
+
+
+def _from_jax_layout(arr: np.ndarray, layout) -> np.ndarray:
+    if layout == "conv":
+        *k, i, o = arr.shape
+        rows = np.ascontiguousarray(arr.reshape(-1, i, o).transpose(1, 0, 2))
+        return np.ascontiguousarray(rows.reshape(-1, o).T).reshape(o, i, *k)
+    if layout == "linear":
+        arr = arr.T
+    elif layout == "hwc":
+        arr = arr.transpose(2, 0, 1)
+    return np.ascontiguousarray(arr)
+
+
+def _flat_paths(tree: dict, prefix: str = ""):
+    for key, value in tree.items():
+        path = f"{prefix}/{key}" if prefix else key
+        if isinstance(value, dict):
+            yield from _flat_paths(value, path)
+        else:
+            yield path, value
+
+
+def _from_jax_by_rules(params: dict, rules) -> dict:
+    out = {}
+    for path, value in _flat_paths(params):
+        hit = _match(rules, path, 0)
+        if hit is None:
+            raise ValueError(f"no port counterpart for JAX parameter {path!r}")
+        key, layout = hit
+        # a copy: checkpoint arrays are read-only
+        out[key] = torch.tensor(_from_jax_layout(np.asarray(value, np.float32), layout))
+    return out
+
+
+def _jax_rule_entry(rules, key: str, value):
+    """(JAX path tuple or None, f32 array in the JAX layout) of one entry."""
+    arr = torch.as_tensor(value).detach().to("cpu", torch.float32).numpy()
+    hit = _match(rules, key, 1)
+    if hit is None:
+        return None, arr
+    path, layout = hit
+    return tuple(path.split("/")), _to_jax_layout(arr, layout)
+
+
+def _to_jax_by_rules(state_dict: dict, rules) -> dict:
+    out = {}
+    for key, value in state_dict.items():
+        path, arr = _jax_rule_entry(rules, key, value)
+        if path is None:
+            raise ValueError(f"no JAX counterpart for state_dict key {key!r}")
+        node = out
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = arr
+    return out
+
+
+def looks_like_video_resnet_state_dict(state_dict) -> bool:
+    """torchvision's video ResNets (and the reference's forks of them) name
+    their stem ``stem.*`` and their stages ``layerL.B.convI.*``."""
+    return any(isinstance(k, str) and _strip(k).startswith(("stem.", "layer1."))
+               for k in state_dict)
+
+
+def import_video_resnet_state_dict(state_dict: dict, template: dict,
+                                   strict: bool = True) -> dict:
+    """A torchvision-layout video-ResNet ``state_dict`` (r3d_18, mc3_18,
+    r2plus1d_18, or the reference's forks of them) onto ``template``, the
+    nested JAX tree of models/video_resnet.py, as
+    pathtracker_tpu/train/torch_import.py::import_video_resnet_state_dict
+    does: ``module.`` stripped, BN running statistics dropped (the norms use
+    batch statistics), a Kinetics 400-class ``fc`` that does not fit the
+    1-unit head skipped (the reference replaced the head after loading,
+    reference utils/engine.py:188-190)."""
+    rules = _rules("video_resnet", {_strip(k): None for k in state_dict})
+    entries = ((key, *_jax_rule_entry(rules, key, value))
+               for key, value in ((_strip(k), v) for k, v in state_dict.items())
+               if not _BN_STATS.search(key))
+    return _fill(template, entries, "torchvision", strict, head_prefixes=("fc_",))

@@ -98,3 +98,29 @@ def test_viz_launch_record_and_signed_map(monkeypatch):
     neg = torch.tensor([[[0.0, 3.0]], [[1.0, 0.0]]])
     got = chip_smoke._signed(pos, neg)
     assert got.dtype == torch.float64 and got.tolist() == [[1.0, -3.0], [-1.0, 2.0]]
+
+
+def test_zoo_phase_is_wired_before_the_kernels_line_and_imports_no_jax():
+    """Phase 17 (the rest of the recurrent zoo and the video ResNets) runs
+    after phase 16 and before the kernels line, now phase 18, over every
+    name this slice ported; the script imports nothing of JAX."""
+    import ast
+    import inspect
+
+    from pathtracker_torch.models import registry
+
+    main = inspect.getsource(chip_smoke.main)
+    order = [main.index(call) for call in ("rbp_zoo_phase(", "rzoo_phase(", '{"kernels"')]
+    assert order == sorted(order)
+    doc = chip_smoke.__doc__
+    assert doc.index("\n 16. ") < doc.index("\n 17. the rest of the recurrent zoo") \
+        < doc.index("\n 18. one JSON line naming every kernel")
+    assert set(chip_smoke.RZOO_MODELS) == set(registry.VIDEO_RESNETS) | {
+        "stlstm", "fflstm", "lrcn", "lrcn_last", "ffnet"}
+    assert set(chip_smoke.RZOO_BF16) <= set(registry.VIDEO_RESNETS)
+    with open(chip_smoke.__file__) as f:
+        tree = ast.parse(f.read())
+    modules = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+    modules |= {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)}
+    assert not {m.split(".")[0] for m in modules} & {"jax", "jaxlib", "flax", "optax",
+                                                      "pathtracker_tpu"}

@@ -385,7 +385,8 @@ def test_rntsm_trains_with_remat_blocks_and_jax_reads_its_checkpoint(
 def test_pretrained_reads_a_local_file_only(tmp_path, monkeypatch):
     """--pretrained as the JAX package: a model without a torchvision
     counterpart warns and keeps its init; a video ResNet warns when no local
-    file exists, and a local one names the slice that imports it."""
+    file exists, and imports a local one (BN running statistics dropped,
+    the Kinetics head skipped)."""
     monkeypatch.setenv("PATHTRACKER_PRETRAINED_DIR", str(tmp_path))
     args = _port_args(ARGV + ["--pretrained"])
     with pytest.warns(UserWarning, match="no torchvision checkpoint counterpart"):
@@ -395,6 +396,16 @@ def test_pretrained_reads_a_local_file_only(tmp_path, monkeypatch):
         assert torch.equal(model.state_dict()[k], v), k
     with pytest.warns(UserWarning, match="no local torchvision checkpoint"):
         assert tloop.load_pretrained(fresh, "r3d") is fresh
-    (tmp_path / "r3d_18.pth").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tloop.load_pretrained(fresh, "r3d")
+    from pathtracker_torch.models import registry as TR
+
+    r3d = TR.model_selector("r3d", timesteps=2, layers=(1, 1, 1, 1), device="cpu")
+    head = r3d.fc.weight.detach().clone()
+    trunk = {k: torch.randn(v.shape, generator=torch.Generator().manual_seed(i))
+             for i, (k, v) in enumerate(r3d.state_dict().items()) if not k.startswith("fc.")}
+    trunk["stem.1.running_mean"] = torch.zeros(64)
+    trunk["fc.weight"], trunk["fc.bias"] = torch.ones(400, 512), torch.ones(400)
+    torch.save(trunk, str(tmp_path / "r3d_18.pth"))
+    assert tloop.load_pretrained(r3d, "r3d") is r3d
+    assert torch.equal(r3d.stem[0].weight, trunk["stem.0.weight"])
+    assert torch.equal(r3d.layer4[0].conv2[1].bias, trunk["layer4.0.conv2.1.bias"])
+    assert torch.equal(r3d.fc.weight, head)

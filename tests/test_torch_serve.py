@@ -124,7 +124,9 @@ def test_registry_and_engine_surface():
         m = tregistry.model_selector(name, timesteps=2, fb_kernel_size=3,
                                      dimensions=8, device="cpu")
         assert not m.use_fused
-    for name in ("stlstm", "lrcn", "r3d", "slowfast", "timesformer"):
+    for name in ("stlstm", "lrcn", "r3d"):
+        assert tregistry.model_selector(name, timesteps=8, device="cpu").training
+    for name in ("slowfast", "slowfast_nl", "slow", "timesformer", "performer", "lambda"):
         with pytest.raises(NotImplementedError, match="later slice"):
             tregistry.model_selector(name, timesteps=2, device="cpu")
     with pytest.raises(NotImplementedError, match="Model not found"):

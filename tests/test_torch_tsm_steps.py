@@ -186,7 +186,10 @@ def test_registry_and_selector_build_rntsm_only():
     with pytest.raises(NotImplementedError, match="remat-blocks"):
         tengine.model_selector(types.SimpleNamespace(model="InT", remat_blocks=True), 2,
                                device="cpu")
-    for name in ("r3d", "mc3", "nostride_r3d", "slow", "slowfast_nl", "lambda"):
+    for name in ("r3d", "mc3", "nostride_r3d"):
+        m = tregistry.model_selector(name, timesteps=2, layers=(1, 1, 1, 1), device="cpu")
+        assert not isinstance(m, TM.TSMResNet) and tregistry.family(name) == "torchvision"
+    for name in ("slow", "slowfast_nl", "lambda"):
         with pytest.raises(NotImplementedError, match="later slice"):
             tregistry.model_selector(name, timesteps=2, device="cpu")
     with pytest.warns(UserWarning, match="pretrained"):

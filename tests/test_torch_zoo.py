@@ -278,7 +278,10 @@ def test_registry_builds_the_zoo_and_refuses_the_rest():
     assert TR.model_selector("gru", **kw).dimensions == 2 * C
     assert TR.model_selector("clock_hgru_fixed", **kw).clock_type == "fixed"
     for name in ("stlstm", "fflstm", "lrcn", "lrcn_last", "ffnet"):
-        with pytest.raises(NotImplementedError, match="item 15"):
+        assert TR.family(name) == "recurrent"
+        assert TR.model_selector(name, **kw).training
+    for name in ("slowfast", "slowfast_nl", "slow", "timesformer", "performer", "lambda"):
+        with pytest.raises(NotImplementedError, match="item 12"):
             TR.model_selector(name, **kw)
     args = type("A", (), dict(model="convlstm", algo="bptt"))()
     with pytest.raises(NotImplementedError, match="legacy"):

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive pathtracker_torch's serving, training, eval, training-loop,
-resident-window, attribution, export and RBP paths, the recurrent zoo and
-the video ResNets on one CUDA card (an H100) and hold every CUDA kernel on
-those paths against its plain PyTorch version.
+resident-window, attribution, export and RBP paths, the recurrent zoo, the
+video ResNets, SlowFast and the transformer baselines on one CUDA card (an
+H100) and hold every CUDA kernel on those paths against its plain PyTorch
+version.
 
     python3 chip_smoke.py
 
@@ -160,7 +161,21 @@ Phases, printed in order; any failure exits non-zero before the last line:
      card's name and power limit; python -m pathtracker_torch.train with
      --model r3d and lrcn for one capped epoch and the eval CLI on the
      rolling checkpoint; no csrc kernel launched; the phase's seconds;
- 18. one JSON line naming every kernel with its numbers (launches summed over
+ 18. SlowFast (slowfast, slowfast_nl, slow: R50 [3,4,6,3] at width 64 and
+     their yaml's alpha, beta and fusion kernel) and the transformer
+     baselines (timesformer, performer with chunked causal FAVOR+, lambda)
+     at the registry's width and depth: for each, the card's f32 logits
+     against the CPU's from the same weights (batch 2, T=8); 3 Adam steps
+     on one batch of 32 rendered clips (T=64) through make_train_step, with
+     SlowFast's dropout live through the step's generator (shown by a
+     forward with the generator against one without), a falling loss, and
+     3 requests through make_inference_fn, scores in [0, 1]; step median,
+     request p50, clips/s, peak memory and the batch used (halved while it
+     does not fit), beside the card's name and power limit; python -m
+     pathtracker_torch.train with --model slowfast and performer for one
+     capped epoch and the eval CLI on the rolling checkpoint; no csrc
+     kernel launched; the phase's seconds;
+ 19. one JSON line naming every kernel with its numbers (launches summed over
      the main paths, with each path's count beside).
 The last line is {"ok": true, "device": {...}}. It needs a CUDA card and
 the repository beside it; without either it exits non-zero and prints no
@@ -423,6 +438,12 @@ RZOO_BF16_ATOL = 2e-2
 # The CLI: one capped epoch of RZOO_CLI_STEPS steps on a rendered root of
 # two batches a split, then the eval CLI on the rolling checkpoint.
 RZOO_CLI, RZOO_CLI_STEPS = ("r3d", "lrcn"), 2
+# Phase 18: SlowFast and the transformer baselines at the registry's width
+# and depth on rendered clips (T=64, batch 32, halved while it does not
+# fit), f32, with phase 17's parity, steps, requests and CLI steps.
+SFZOO_MODELS = ("slowfast", "slowfast_nl", "slow", "timesformer", "performer", "lambda")
+SFZOO_DROPOUT = ("slowfast", "slowfast_nl", "slow")
+SFZOO_CLI = ("slowfast", "performer")
 
 
 def fail(msg: str):
@@ -2774,6 +2795,71 @@ def rzoo_phase(F, Co, card: str) -> None:
           "launched", flush=True)
 
 
+def _dropout_gap(name: str, batch) -> float:
+    """The largest logit gap between a forward with a generator (the train
+    step's dropout) and one without (a request's), on 4 clips: nonzero
+    when the dropout is live."""
+    from pathtracker_torch import engine
+    from pathtracker_torch.data.prepare import prepare_batch
+
+    model = _rzoo_model(name, TIMESTEPS).train()
+    imgs, _ = prepare_batch(batch[0][:4], batch[1][:4])
+    with torch.no_grad():
+        plain = engine.model_step(model, imgs, name)[0]
+        dropped = engine.model_step(model, imgs, name,
+                                    generator=torch.Generator(device=DEVICE).manual_seed(0))[0]
+    return float((dropped - plain).abs().max())
+
+
+def sfzoo_phase(F, Co, card: str) -> None:
+    """SlowFast and the transformer baselines: for each name the card
+    against the CPU at T=8, 3 steps on one batch and RZOO_REQUESTS requests
+    at the registry's width and depth, SlowFast's dropout live in the
+    steps; the train and eval CLIs for SFZOO_CLI."""
+    from pathtracker_torch.data import registry
+    from pathtracker_torch.eval import serve
+
+    t_phase = time.perf_counter()
+    for k in (*F.KERNELS, *Co.KERNELS):
+        k.launches = 0
+    batch = _zoo_batch(ZOO_BATCH, 34)
+    for name in SFZOO_MODELS:
+        gap = _rzoo_parity(serve, name)
+        losses, steps, requests, peak, used = _rzoo_run(serve, name, batch)
+        if not losses[-1] < losses[0]:
+            fail(f"sfzoo {name}: the loss on the repeated batch did not fall: {losses}")
+        dropout = ""
+        if name in SFZOO_DROPOUT:
+            live = _dropout_gap(name, batch)
+            if not live > 0:
+                fail(f"sfzoo {name}: a forward with the step's generator equals one without")
+            dropout = f"; dropout live in the steps (logits {live:.3g} from a request's)"
+        print(f"sfzoo {name} (T={TIMESTEPS}, batch {used}): {ZOO_STEPS} "
+              f"Adam({LEARNING_RATE:g}) steps, losses {' '.join(f'{v:.4f}' for v in losses)}, "
+              f"step times {_ms(steps)} ms, median {statistics.median(steps) * 1e3:.2f} ms, "
+              f"{used / statistics.median(steps):.1f} clips/s; request p50 "
+              f"{statistics.median(requests) * 1e3:.2f} ms ({_ms(requests)}), "
+              f"{used / statistics.median(requests):.1f} clips/s; peak "
+              f"{peak / 2**30:.2f} GiB; card vs CPU logits (batch {RZOO_PARITY_BATCH}, "
+              f"T={RZOO_PARITY_T}) {gap:.3g}{dropout}; {card}", flush=True)
+        torch.cuda.empty_cache()
+    os.makedirs(BUILD, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp, _environ(
+            PATHTRACKER_DATA_ROOT=os.path.join(tmp, "data"),
+            PATHTRACKER_DOT_SIZE=str(DOT_SIZE),
+            PATHTRACKER_SYNTH_TRAIN=str(2 * ZOO_BATCH),
+            PATHTRACKER_SYNTH_TEST=str(2 * ZOO_BATCH)):
+        registry.dataset_selector(DISTRACTORS, 1, TIMESTEPS)
+        for name in SFZOO_CLI:
+            print(f"sfzoo CLI {name}: {_rzoo_cli(name, tmp)}", flush=True)
+    launched = [k.launches for k in (*F.KERNELS, *Co.KERNELS)]
+    if any(launched):
+        fail(f"sfzoo: a csrc kernel launched on SlowFast's or the transformers' paths: "
+             f"{launched}")
+    print(f"sfzoo: phase 18 took {time.perf_counter() - t_phase:.2f} s; no csrc kernel "
+          "launched", flush=True)
+
+
 def resource_lines(log: str) -> list[str]:
     """'kernel: N registers, S bytes smem, spills' from ptxas -v's output."""
     out, name, spill = [], None, ""
@@ -2858,6 +2944,8 @@ def main() -> int:
     rbp_zoo_phase(F, loop_ms)
     torch.cuda.empty_cache()
     rzoo_phase(F, Co, card)
+    torch.cuda.empty_cache()
+    sfzoo_phase(F, Co, card)
     torch.cuda.empty_cache()
     for row in correlation_rows:  # not on the viz or export paths
         row["launches_viz"] = row["launches_export"] = 0

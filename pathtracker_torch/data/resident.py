@@ -32,7 +32,7 @@ from pathtracker_torch.data import native as _native
 from pathtracker_torch.data import prng
 from pathtracker_torch.data.prepare import prepare_batch
 from pathtracker_torch.data.tfrecord import read_clip_records
-from pathtracker_torch.engine import model_step
+from pathtracker_torch.engine import DROPOUT_MODELS, model_step
 from pathtracker_torch.train.steps import TRAIN_KEYS
 from pathtracker_torch.utils.metrics import acc_scores, bce_with_logits
 
@@ -138,6 +138,10 @@ def make_resident_train_step(model, model_name: str, optimizer, n_clips: int,
     lanes = torch.arange(batch_size, device=device)
     stats = torch.zeros((fused, len(TRAIN_KEYS)), dtype=torch.float32, device=device)
     state = {"count": 0, "epoch": None, "bound": None, "pool": None, "side": None}
+    # The generator of the models' stochastic layers (SlowFast's dropout), as
+    # make_train_step's; a captured window draws from it on every replay.
+    generator = torch.Generator(device=device).manual_seed(seed)
+    draws = model_name in DROPOUT_MODELS
 
     def gather(order, slot):
         """Slot ``slot`` of an epoch's order. Batches tile the permutation;
@@ -156,7 +160,7 @@ def make_resident_train_step(model, model_name: str, optimizer, n_clips: int,
             idx = gather(perm, (first + j) % steps_per_epoch)
             raw_imgs, raw_labels = clips.index_select(0, idx), labels.index_select(0, idx)
             imgs, target = prepare_batch(raw_imgs, raw_labels, **prep)
-            output, jv_penalty = model_step(model, imgs, model_name)
+            output, jv_penalty = model_step(model, imgs, model_name, generator=generator)
             loss = bce_with_logits(output, target)
             jv = jv_penalty.mean()
             total = loss + jv * 1e1 if penalty else loss
@@ -184,6 +188,8 @@ def make_resident_train_step(model, model_name: str, optimizer, n_clips: int,
             window(clips, labels, k)
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        if draws:
+            graph.register_generator_state(generator)
         try:
             with torch.cuda.graph(graph, pool=state["pool"], stream=side):
                 window(clips, labels, k)

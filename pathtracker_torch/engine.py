@@ -1,8 +1,9 @@
 """Engine: model selection from parsed flags, forward-family dispatch, batch
-prep and checkpoint loading (pathtracker_tpu/engine.py), for the families
-the port builds: the recurrent family (InT, ``fc``, the hGRU family,
-``gru``, ``stlstm``, ``fflstm``, ``lrcn``, ``lrcn_last``, ``ffnet``) and,
-of the 'torchvision' family, ``rntsm`` and the video ResNets. The
+prep and checkpoint loading (pathtracker_tpu/engine.py), for the three
+families: the recurrent family (InT, ``fc``, the hGRU family, ``gru``,
+``stlstm``, ``fflstm``, ``lrcn``, ``lrcn_last``, ``ffnet`` and the
+transformers), the 'torchvision' family (``rntsm``, the video ResNets and
+``slow``) and the 'slowfast' family (``slowfast``, ``slowfast_nl``). The
 reference-compatible API of reference utils/engine.py:
 model_selector, model_step, prepare_data, dataset_selector, get_datasets,
 load_ckpt, plot_results, and the APIs its viz script called but its
@@ -30,6 +31,7 @@ from pathtracker_torch.train.torch_import import (layout_of, state_dict_from_jax
                                                   to_jax_params)
 
 SLOWFAST_ALPHA = 4  # slow pathway takes every 4th frame (reference utils/engine.py:52)
+DROPOUT_MODELS = ("slowfast", "slowfast_nl", "slow")  # dropout before the head
 
 
 def model_selector(args, timesteps: int, device=None, **model_kwargs):
@@ -72,6 +74,11 @@ def model_selector(args, timesteps: int, device=None, **model_kwargs):
                 f"--remat-blocks is wired for 'rntsm'; {args.model!r} fits "
                 "without it (the InT family recomputes its steps already)")
         kwargs["remat"] = True
+    if family(args.model) == "slowfast" or args.model == "slow":
+        # The yaml is SlowFast's config surface (reference models/cfgs/*.yaml
+        # via slowfast_utils.py:13-17): --slowfast_cfg points at a modified
+        # cfg, else the default for the name is read.
+        kwargs["cfg_path"] = getattr(args, "slowfast_cfg", None)
     return _build(
         args.model,
         timesteps=timesteps,
@@ -87,22 +94,26 @@ def model_step(model, imgs, model_name: str, test: bool = False,
                generator=None):
     """Forward dispatch (reference utils/engine.py:42-72). Returns
     (output, jv_penalty) or, with test=True, (output, states, gates).
-    ``generator`` is the train step's, for models with stochastic layers;
-    the ported models have none and ignore it. The 'torchvision' family's
-    forward returns the logits only: its penalty is ones(1), its states and
-    gates None, and so are those of the recurrent models whose testmode
-    returns no maps (stlstm, fflstm, lrcn, lrcn_last, ffnet: (logit,
-    penalty), where the JAX package's eval fails to unpack them)."""
+    ``generator`` is the train step's: it reaches the models with
+    stochastic layers (SlowFast's and ``slow``'s dropout, which runs only
+    when one is given); the others have none. The 'torchvision' and
+    'slowfast' families' forwards return the logits only: their penalty is
+    ones(1), their states and gates None, and so are those of the recurrent
+    models whose testmode returns no maps (stlstm, fflstm, lrcn, lrcn_last,
+    ffnet: (logit, penalty), where the JAX package's eval fails to unpack
+    them). The 'slowfast' family takes ``slowfast_pathways(imgs, alpha)``
+    with the model's own alpha (its yaml's)."""
     fam = family(model_name)
-    if fam == "torchvision":
-        output = model(imgs)
+    if fam in ("torchvision", "slowfast"):
+        kw = {"generator": generator} if model_name in DROPOUT_MODELS else {}
+        if fam == "slowfast":
+            output = model(slowfast_pathways(imgs, getattr(model, "alpha", SLOWFAST_ALPHA)),
+                           **kw)
+        else:
+            output = model(imgs, **kw)
         if test:
             return output, None, None
         return output, torch.ones((1,), dtype=torch.float32, device=output.device)
-    if fam != "recurrent":
-        raise NotImplementedError(
-            f"{model_name!r}: the {fam} forward family comes with a later "
-            "slice of pathtracker_torch")
     if test:
         out = model(imgs, testmode=True)
         return out if len(out) == 3 else (out[0], None, None)
@@ -112,11 +123,17 @@ def model_step(model, imgs, model_name: str, test: bool = False,
 def slowfast_pathways(imgs, alpha: int = SLOWFAST_ALPHA):
     """[slow, fast] pathway list (reference utils/engine.py:47-61): fast = all
     frames; slow = T//alpha frames taken at linspace(0, T-1, T//alpha)
-    rounded down, as the reference's torch.index_select."""
+    rounded down, as the reference's torch.index_select. The frame indices
+    are computed on the device as numpy's linspace computes them (i * step
+    in float64, the last set to T-1): no host copy, so the split also runs
+    inside a CUDA graph capture (the resident windows)."""
     t = imgs.shape[2]
-    idx = np.linspace(0, t - 1, t // alpha).astype(np.int64)
-    slow = torch.index_select(imgs, 2, torch.as_tensor(idx, device=imgs.device))
-    return [slow, imgs]
+    n = t // alpha
+    idx = torch.arange(n, dtype=torch.float64, device=imgs.device)
+    if n > 1:
+        idx = idx * ((t - 1) / (n - 1))
+        idx[-1:].fill_(t - 1)  # a fill kernel: no host copy
+    return [torch.index_select(imgs, 2, idx.long()), imgs]
 
 
 def prepare_data(imgs, target, args, device=None, disentangle_channels: bool = False,

@@ -126,17 +126,18 @@ def load_exported(path: str):
 
 def build(model: str = "InT", ckpt: str | None = None, length: int = 64,
           dimensions: int = 32, fb_kernel_size: int = 7, bf16: bool = False,
-          pretrained: bool = False, remat_blocks: bool = False, device=None,
-          **model_kwargs):
-    """Model (``InT`` family or ``rntsm``) for serving on ``device``
-    (``None`` means cuda), with the weights of ``ckpt`` (a JAX-package
-    msgpack checkpoint of that model) or, without one, its seeded init.
-    ``model_kwargs`` reach the model's constructor (e.g. ``fused=False`` for
-    the eager cell or the plain correlation)."""
+          pretrained: bool = False, remat_blocks: bool = False,
+          slowfast_cfg: str | None = None, device=None, **model_kwargs):
+    """Model (any ``--model`` name the registry builds) for serving on
+    ``device`` (``None`` means cuda), with the weights of ``ckpt`` (a
+    checkpoint of either package, or a reference torch pickle) or, without
+    one, its seeded init. ``slowfast_cfg`` is SlowFast's and ``slow``'s yaml
+    (``--slowfast_cfg``); ``model_kwargs`` reach the model's constructor
+    (e.g. ``fused=False`` for the eager cell or the plain correlation)."""
     args = SimpleNamespace(model=model, dimensions=dimensions,
                            fb_kernel_size=fb_kernel_size, bf16=bf16,
                            pretrained=pretrained, algo="bptt",
-                           remat_blocks=remat_blocks)
+                           remat_blocks=remat_blocks, slowfast_cfg=slowfast_cfg)
     net = engine.model_selector(args, length, device=device, **model_kwargs)
     if ckpt:
         engine.load_ckpt(net, ckpt)
@@ -153,7 +154,7 @@ def main(argv=None):
     p.add_argument("-d", "--dimensions", type=int, default=32)
     p.add_argument("-k", "--fb_kernel_size", type=int, default=7)
     p.add_argument("--slowfast_cfg", default=None,
-                   help="accepted for the JAX package's command lines; unused")
+                   help="SlowFast / slow yaml cfg (default: the model's own)")
     p.add_argument("--bf16", action="store_true",
                    help="export the mixed-precision fast path (bf16 matmul "
                         "operands, f32 state; the fused K1-K3 kernels at 32 "
@@ -179,7 +180,8 @@ def main(argv=None):
 
     model = build(model=args.model, ckpt=args.ckpt, length=args.length,
                   dimensions=args.dimensions, fb_kernel_size=args.fb_kernel_size,
-                  bf16=args.bf16, pretrained=args.pretrained, device=args.device)
+                  bf16=args.bf16, pretrained=args.pretrained,
+                  slowfast_cfg=args.slowfast_cfg, device=args.device)
     program = export_program(model, args.model, args.length, batch=args.batch,
                              probs=not args.logits, pretrained_norm=args.pretrained)
     save_exported(program, args.out)

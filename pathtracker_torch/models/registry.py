@@ -4,11 +4,12 @@ The port builds the InT family, the linear probe ``fc``, the hGRU family
 (``hgru``, ``hgru_v2``, ``clock_hgru``, ``clock_hgru_fixed``), the ConvGRU
 ``gru``, the legacy-contract ``convlstm``, the rest of the recurrent zoo
 (``stlstm``, ``fflstm``, ``lrcn``, ``lrcn_last``, ``ffnet``), ``rntsm``
-(TSM-ResNet50 with MotionSqueeze) and the video ResNets (``r3d``, ``mc3``,
-``r2plus1`` and the no-stride forks); SlowFast, ``slow`` and the
-transformers raise ``NotImplementedError`` naming the slice that ports
-them. MODEL_FAMILY mirrors the three forward-contract families of the
-reference's model_step (reference utils/engine.py:29-30,42-72):
+(TSM-ResNet50 with MotionSqueeze), the video ResNets (``r3d``, ``mc3``,
+``r2plus1`` and the no-stride forks), SlowFast (``slowfast``,
+``slowfast_nl``, ``slow``, from their yaml cfgs) and the transformers
+(``timesformer``, ``performer``, ``lambda``). MODEL_FAMILY mirrors the three
+forward-contract families of the reference's model_step (reference
+utils/engine.py:29-30,42-72):
   'recurrent'    forward(x) -> (logit, jv_penalty); testmode adds states/gates
   'torchvision'  forward(x) -> logit only
   'slowfast'     forward([slow, fast]) -> logit only
@@ -53,7 +54,8 @@ VIDEO_RESNETS = ("r3d", "mc3", "r2plus1", "nostride_r3d", "nostride_r3d_pos",
 # load_pretrained imports; --pretrained on any other name only selects the
 # pretrained input normalization.
 TORCHVISION_PRETRAINED = ("r3d", "mc3", "r2plus1")
-_LATER = ("slowfast", "slowfast_nl", "slow", "timesformer", "performer", "lambda")
+SLOWFAST = ("slowfast", "slowfast_nl", "slow")
+TRANSFORMERS = ("timesformer", "performer", "lambda")
 
 
 def family(model_name: str) -> str:
@@ -75,12 +77,8 @@ def model_selector(model_name: str, timesteps: int, fb_kernel_size: int = 7,
     (``None`` means cuda)."""
     from pathtracker_torch.models import int_circuit
 
-    if model_name in _LATER:
-        raise NotImplementedError(
-            f"{model_name!r} is not ported yet: SlowFast and the transformers "
-            "come with a later slice of pathtracker_torch (ROADMAP.md queue 1 "
-            "item 12)")
-    if model_name not in INT_VARIANTS and model_name not in ZOO + VIDEO_RESNETS + ("rntsm",):
+    if model_name not in INT_VARIANTS and model_name not in (
+            ZOO + VIDEO_RESNETS + SLOWFAST + TRANSFORMERS + ("rntsm",)):
         raise NotImplementedError(f"Model not found: {model_name!r}")
     if pretrained and model_name not in TORCHVISION_PRETRAINED:
         warnings.warn(
@@ -129,6 +127,19 @@ def model_selector(model_name: str, timesteps: int, fb_kernel_size: int = 7,
         from pathtracker_torch.models import video_resnet
         return video_resnet.build(model_name, timesteps=timesteps, device=device,
                                   **kwargs)
+    if model_name in SLOWFAST:
+        from pathtracker_torch.models import slowfast
+        if model_name == "slow":
+            # The PathTracker head, 1 logit, over the yaml's Kinetics-400
+            # one (keyword arguments merge over the yaml).
+            kwargs.setdefault("num_classes", 1)
+        return slowfast.build(model_name, device=device, **kwargs)
+    if model_name in TRANSFORMERS:
+        from pathtracker_torch.models import transformers
+        cls = {"timesformer": transformers.TransformerModel,
+               "performer": transformers.PerformerModel,
+               "lambda": transformers.LambdaModel}[model_name]
+        return cls(dimensions=dimensions, timesteps=timesteps, device=device, **kwargs)
     return int_circuit.InT(dimensions=dimensions, timesteps=timesteps,
                            kernel_size=fb_kernel_size, device=device,
                            **INT_VARIANTS[model_name], **kwargs)

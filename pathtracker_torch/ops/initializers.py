@@ -1,5 +1,6 @@
 """Parameter initializers with the reference's torch semantics
-(pathtracker_tpu/ops/initializers.py:29-110), for the InT family and the zoo.
+(pathtracker_tpu/ops/initializers.py:29-110), for the InT family, the zoo
+and the transformers.
 
 Every initializer is ``init(generator, shape) -> f32 CPU tensor`` over
 torch's own layouts (OIHW convs, [out, in] linears), drawing from the
@@ -9,6 +10,7 @@ explicit ``torch.Generator``:
   * ``orthogonal_`` on a weight flattened to [O, I*kh*kw] (a 1x1 gate and a
     k x k conv alike), made orthonormal by QR with Haar sign correction;
   * chrono gate bias: log U(1, T-1) (reference intent at models/InT.py:127);
+  * FAVOR+ random features: stacked Haar d x d blocks with unit-norm rows;
   * constants.
 """
 
@@ -51,6 +53,18 @@ def torch_orthogonal(gen, shape):
     if rows < cols:
         q = q.T
     return q.reshape(shape).contiguous()
+
+
+def favor_orthogonal_features(gen, shape):
+    """FAVOR+ random-feature matrix [m, d]: ceil(m/d) independent Haar d x d
+    blocks stacked, every row unit-norm (performer-pytorch's
+    gaussian_orthogonal_random_matrix; pathtracker_tpu/ops/initializers.py:64-75).
+    Not ``torch_orthogonal`` on [m, d]: for m > d that gives orthonormal
+    COLUMNS, whose m rows have norm ~sqrt(d/m), and the projections then
+    wash attention out to uniform. The caller scales rows by sqrt(d)."""
+    m, d = shape
+    blocks = [torch_orthogonal(gen, (d, d)) for _ in range(-(-m // d))]
+    return torch.cat(blocks, dim=0)[:m].contiguous()
 
 
 def chrono_gate_bias(timesteps: int):

@@ -257,8 +257,8 @@ def load_checkpoint(path: str) -> dict:
 
 def load_params(path: str, template=None, strict: bool = True):
     """The params of a checkpoint in the JAX names and layouts: a flat dict
-    (InT family) or a nested one (``rntsm``, the video ResNets, stlstm's
-    cell); turn them into the port's
+    (InT family) or a nested one (``rntsm``, the video ResNets, SlowFast,
+    the transformers, stlstm's cell); turn them into the port's
     state_dict with ``train.torch_import.state_dict_from_jax``.
 
     ``template`` is a params tree in the same names and layouts (e.g.
@@ -285,9 +285,9 @@ def load_params(path: str, template=None, strict: bool = True):
             return torch_import.import_video_resnet_state_dict(
                 params, template, strict=strict)
         if torch_import.looks_like_slowfast_state_dict(params):
-            raise NotImplementedError(
-                f"{path} is a SlowFast checkpoint: that family comes with a "
-                "later slice of pathtracker_torch (ROADMAP.md queue 1 item 12)")
+            # FAIR pyslowfast layout (the reference's slowfast / slowfast_nl)
+            return torch_import.import_slowfast_state_dict(
+                params, template, strict=strict)
         return torch_import.import_reference_state_dict(params, template,
                                                         strict=strict)
     if template is None or strict:

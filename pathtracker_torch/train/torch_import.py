@@ -52,6 +52,25 @@ stlstm's LayerNorm affines [H, W, C] <-> [C, H, W]. The video ResNets'
 state_dict is torchvision's (``import_video_resnet_state_dict`` takes a
 torchvision checkpoint).
 
+SlowFast and ``slow`` (models/slowfast.py) carry FAIR pyslowfast's
+state_dict names, so one rule table (``_slowfast_rules``) maps the port,
+FAIR checkpoints and the JAX tree, as
+pathtracker_tpu/train/torch_import.py:466-627 does:
+
+    slow_stem | fast_stem | stem  -> s1.pathway{0,1}_stem.{conv.weight, bn.*}
+    fuse{j-1}                     -> s{j}_fuse.{conv_f2s.weight, bn.*}
+    {slow,fast}_res{s}_{b}/{a,b,c} | res{s}_{b}/{a,b,c}
+                                  -> s{s}.pathway{p}_res{b}.branch2.{a,b,c}{.weight,_bn.*}
+    .../proj                      -> ...branch1.weight, branch1_bn.*
+    nl_res{s}_{b}/{theta,phi,g,out} -> s{s}.pathway0_nonlocal{b}.conv_*.weight, bn.*
+    head_kernel [F,cls], head_bias -> head.projection.{weight [cls,F], bias}
+
+with conv kernels THWIO <-> OITHW. The transformers (``timesformer`` and
+the ViT, ``performer``, ``lambda``) keep the JAX names with ``/`` as ``.``
+and ``_kernel`` as ``.weight``, linears [in, out] <-> [out, in] and the
+readout's conv HWIO <-> OIHW; ``favor_proj``, ``pos_emb`` and
+``cls_token`` keep their layout.
+
 ``state_dict_from_jax`` picks the mapping by model name, or by a layout
 name of ``layout_of``; ``to_jax_params`` takes any family's ``state_dict``
 and tells the families apart by their keys (``layout_of``).
@@ -64,7 +83,7 @@ import re
 import numpy as np
 import torch
 
-from pathtracker_torch.models.registry import RECURRENT_ZOO, VIDEO_RESNETS
+from pathtracker_torch.models.registry import RECURRENT_ZOO, SLOWFAST, VIDEO_RESNETS
 
 _EXPORT_RULES = [
     (re.compile(r"^preproc_kernel$"), lambda m: "preproc.weight"),
@@ -177,7 +196,7 @@ def to_jax_params(state_dict: dict) -> dict:
     layout = layout_of(state_dict)
     if layout == "tsm":
         return import_tsm_resnet_state_dict(state_dict)
-    if layout in ("zoo", "video_resnet"):
+    if layout in _RULE_LAYOUTS:
         return _to_jax_by_rules(state_dict, _rules(layout, state_dict))
     return dict(_jax_entry(key, value) for key, value in state_dict.items())
 
@@ -291,15 +310,19 @@ def jax_leaves(tree: dict, prefix: str = ""):
 
 # model name -> its parameters' layout; every other name is "flat"
 LAYOUTS = {"rntsm": "tsm", **dict.fromkeys(RECURRENT_ZOO, "zoo"),
-           **dict.fromkeys(VIDEO_RESNETS, "video_resnet")}
+           **dict.fromkeys(VIDEO_RESNETS, "video_resnet"),
+           **dict.fromkeys(SLOWFAST, "slowfast"), "timesformer": "transformer",
+           "performer": "performer", "lambda": "lambda"}
+# the layouts that rule tables map, in the order layout_of tries them
+_RULE_LAYOUTS = ("video_resnet", "zoo", "slowfast", "transformer", "performer", "lambda")
 
 
 def layout_of(state_dict) -> str:
     """The layout of a port ``state_dict`` (or of tensors keyed like one),
-    from its keys: "tsm", "video_resnet", "zoo" or "flat"."""
+    from its keys: "tsm", one of ``_RULE_LAYOUTS`` or "flat"."""
     if looks_like_tsm_resnet_state_dict(state_dict):
         return "tsm"
-    for layout in ("video_resnet", "zoo"):
+    for layout in _RULE_LAYOUTS:
         rules = _rules(layout, state_dict)
         if state_dict and all(_match(rules, key, 1) for key in state_dict):
             return layout
@@ -312,7 +335,7 @@ def state_dict_from_jax(model: str, params: dict) -> dict:
     layout = LAYOUTS.get(model, model)
     if layout == "tsm":
         return export_tsm_resnet_state_dict(params)
-    if layout in ("zoo", "video_resnet"):
+    if layout in _RULE_LAYOUTS:
         return _from_jax_by_rules(params, _rules(layout, params))
     return export_reference_state_dict(params)
 
@@ -516,6 +539,79 @@ def _video_resnet_rules(r2plus1: bool) -> list:
     ]
 
 
+def _convbn_rules(jax_prefix: str, conv_key: str, bn_prefix: str) -> list:
+    return [(f"{jax_prefix}/kernel", conv_key, "conv"),
+            *_bn_rules(f"{jax_prefix}/bn", bn_prefix)]
+
+
+def _slowfast_rules(two_pathways: bool) -> list:
+    """FAIR pyslowfast's names (the port's) <-> models/slowfast.py's nested
+    tree, for SlowFast or, with ``two_pathways`` False, SlowOnly."""
+    rules = []
+    for jax, p in ((("slow_", "0"), ("fast_", "1")) if two_pathways else (("", "0"),)):
+        fair = "s1.pathway" + p + "_stem"
+        rules += _convbn_rules(jax + "stem", fair + ".conv.weight", fair + ".bn")
+        blk, res = jax + "res{s}_{b}", "s{s}.pathway" + p + "_res{b}"
+        rules += _convbn_rules(blk + "/proj", res + ".branch1.weight", res + ".branch1_bn")
+        rules += _convbn_rules(blk + "/{c}", res + ".branch2.{c}.weight", res + ".branch2.{c}_bn")
+    if two_pathways:
+        for j in range(1, 5):
+            fair = f"s{j}_fuse"
+            rules += _convbn_rules(f"fuse{j - 1}", fair + ".conv_f2s.weight", fair + ".bn")
+    nl = "s{s}.pathway0_nonlocal{b}"
+    rules += [("nl_res{s}_{b}/{m}/kernel", nl + ".conv_{m}.weight", "conv"),
+              *_bn_rules("nl_res{s}_{b}/out/bn", nl + ".bn"),
+              ("head_kernel", "head.projection.weight", "linear"),
+              ("head_bias", "head.projection.bias", None)]
+    return rules
+
+
+def _linear_rules(jax_prefix: str, torch_prefix: str, bias: bool = True) -> list:
+    return [(f"{jax_prefix}_kernel", f"{torch_prefix}.weight", "linear")] + (
+        [(f"{jax_prefix}_bias", f"{torch_prefix}.bias", None)] if bias else [])
+
+
+def _ln_rules(prefix: str = "") -> list:
+    """LayerNorms ``ln_<name>`` (under ``prefix``, a JAX path)."""
+    tp = prefix.replace("/", ".")
+    return [(f"{prefix}ln_{{n}}_scale", f"{tp}ln_{{n}}.weight", None),
+            (f"{prefix}ln_{{n}}_bias", f"{tp}ln_{{n}}.bias", None)]
+
+
+def _attention_rules(jax_mod: str, torch_mod: str) -> list:
+    """models/transformers.py's _MHA and _MLP modules named ``jax_mod``."""
+    return [(f"{jax_mod}/qkv_kernel", f"{torch_mod}.qkv.weight", "linear"),
+            *_linear_rules(f"{jax_mod}/out", f"{torch_mod}.out"),
+            *_linear_rules(f"{jax_mod}/fc{{j}}", f"{torch_mod}.fc{{j}}")]
+
+
+_READOUT_RULES = [("target_conv_kernel", "target_conv.weight", "conv"),
+                  ("target_conv_bias", "target_conv.bias", None),
+                  *_linear_rules("readout_dense", "readout_dense"),
+                  *_linear_rules("preproc", "preproc")]
+
+_TRANSFORMER_RULES = [  # the TimeSformer and the ViT
+    *_linear_rules("patch", "patch"), ("pos_emb", "pos_emb", None),
+    ("cls_token", "cls_token", None), *_linear_rules("head", "head"),
+    *_ln_rules(), *_ln_rules("encoder/"),
+    *_attention_rules("{a}_attn{i}", "{a}_attn{i}"),  # time_attn0, space_attn0
+    *_attention_rules("mlp{i}", "mlp{i}"), *_attention_rules("mlp_cls{i}", "mlp_cls{i}"),
+    *_attention_rules("encoder/attn{i}", "encoder.attn{i}"),
+    *_attention_rules("encoder/mlp{i}", "encoder.mlp{i}"),
+]
+_PERFORMER_RULES = [
+    ("favor_proj", "favor_proj", None), *_ln_rules(), *_READOUT_RULES,
+    ("attn{i}_qkv", "attn{i}.qkv.weight", "linear"),
+    ("attn{i}_out", "attn{i}.out.weight", "linear"),
+    *_attention_rules("ff{i}", "ff{i}"),
+]
+_LAMBDA_RULES = [
+    ("to_{x}_kernel", "to_{x}.weight", "linear"), ("pos_emb", "pos_emb", None),
+    ("bn_{x}_scale", "bn_{x}.weight", None), ("bn_{x}_bias", "bn_{x}.bias", None),
+    *_READOUT_RULES,
+]
+
+
 def _compile(rules: list) -> list:
     """Each rule as (JAX regex, state_dict regex, JAX format, state_dict
     format, layout)."""
@@ -527,14 +623,21 @@ def _compile(rules: list) -> list:
 
 _ZOO = _compile(_ZOO_RULES)
 _VIDEO = {r2plus1: _compile(_video_resnet_rules(r2plus1)) for r2plus1 in (False, True)}
+_SLOWFAST = {two: _compile(_slowfast_rules(two)) for two in (False, True)}
+_TABLES = {"zoo": _ZOO, "transformer": _compile(_TRANSFORMER_RULES),
+           "performer": _compile(_PERFORMER_RULES), "lambda": _compile(_LAMBDA_RULES)}
 
 
 def _rules(layout: str, tree) -> list:
-    """The compiled rules of ``layout`` ("zoo" or "video_resnet") for a JAX
-    tree or a state_dict (which tells (2+1)D's stem from the others)."""
-    if layout == "zoo":
-        return _ZOO
-    return _VIDEO["stem.3.weight" in tree or "stem_s" in tree]
+    """The compiled rules of ``layout`` (one of ``_RULE_LAYOUTS``) for a JAX
+    tree or a state_dict (which tells (2+1)D's stem from the other video
+    ResNets', and SlowFast's two pathways from ``slow``'s one)."""
+    if layout == "video_resnet":
+        return _VIDEO["stem.3.weight" in tree or "stem_s" in tree]
+    if layout == "slowfast":
+        return _SLOWFAST[any(k in tree for k in ("slow_stem", "fast_stem",
+                                                  "s1.pathway1_stem.conv.weight"))]
+    return _TABLES[layout]
 
 
 def _match(rules, name: str, side: int):
@@ -641,3 +744,29 @@ def import_video_resnet_state_dict(state_dict: dict, template: dict,
                for key, value in ((_strip(k), v) for k, v in state_dict.items())
                if not _BN_STATS.search(key))
     return _fill(template, entries, "torchvision", strict, head_prefixes=("fc_",))
+
+
+# --- SlowFast: FAIR pyslowfast checkpoints ----------------------------------
+
+def import_slowfast_state_dict(state_dict: dict, template: dict,
+                               strict: bool = True) -> dict:
+    """A FAIR pyslowfast ``state_dict`` (the reference's slowfast /
+    slowfast_nl checkpoints) onto ``template``, the nested JAX tree of
+    models/slowfast.py, as
+    pathtracker_tpu/train/torch_import.py::import_slowfast_state_dict does:
+    ``module.`` stripped, conv weights OITHW -> THWIO, the head
+    [classes, feat] -> [feat, classes] (slow features before fast, as FAIR's
+    head concatenates them), BN running statistics dropped (the norms use
+    batch statistics), a Kinetics 400-class head that does not fit the
+    1-unit head skipped."""
+    rules = _rules("slowfast", template)
+    entries = ((key, *_jax_rule_entry(rules, key, value))
+               for key, value in ((_strip(k), v) for k, v in state_dict.items())
+               if not _BN_STATS.search(key))
+    return _fill(template, entries, "slowfast", strict, head_prefixes=("head_",))
+
+
+def export_slowfast_state_dict(params: dict) -> dict:
+    """models/slowfast.py params (JAX names and layouts) -> a FAIR
+    pyslowfast ``state_dict``, which is the port's."""
+    return _from_jax_by_rules(params, _rules("slowfast", params))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a serving request's time goes in pathtracker_torch, on one CUDA card.
 
-    python3 scripts/torch_serve_profile.py [--model InT|rntsm]
+    python3 scripts/torch_serve_profile.py [--model InT|rntsm|<a SlowFast or transformer name>]
 
 Serves warm batch-128, T=64 requests of rendered clips (chainE weights,
 dist 14, speed 1, 2-pixel dots) through the fused and the eager mixed InT
@@ -14,6 +14,10 @@ TSM-ResNet50 + MotionSqueeze (seeded init), the same profile, and the
 request's device time by part of the model (CUDA events around the trunk's
 convs, the trunk's BatchNorm passes and the whole MotionSqueeze; the rest is
 shifts, ReLUs, residual adds, the pool, the head and batch prep).
+
+With ``--model`` slowfast, slowfast_nl, slow, timesformer, performer or
+lambda: one warm request of 32 clips, T=64 at the registry's width and
+depth (f32, seeded init), the same profile.
 """
 
 from __future__ import annotations
@@ -32,13 +36,16 @@ sys.path.insert(0, ROOT)
 
 from pathtracker_torch.data.pathtracker import render_batch  # noqa: E402
 from pathtracker_torch.eval import serve  # noqa: E402
+from pathtracker_torch.models.registry import SLOWFAST, TRANSFORMERS  # noqa: E402
 
 CHECKPOINT = os.path.join(ROOT, "results_conv", "64_1_14", "chainE", "saved_models",
                           "model_val_acc_0072_epoch_15_checkpoint.pth.tar")
 GROUPS = (  # first match wins; names are lower-cased
     ("fused K1-K3", ("k1_kernel", "k2_kernel", "k3_kernel")),
     ("correlation kernels", ("corr_fwd_kernel", "corr_bwd_kernel")),
-    ("conv (cuDNN)", ("conv", "fprop", "cudnn", "xmma", "implicit")),
+    # cuDNN's convs by their passes (an ``sm*_xmma_fprop_implicit_gemm``);
+    # cuBLAS's products are ``sm*_xmma_gemm_*``, so "xmma" alone names no group.
+    ("conv (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit")),
     ("matmul (cuBLAS)", ("gemm", "cublas", "cutlass")),
     ("reductions (BN stats, means)", ("reduce",)),
     ("elementwise + copies", ("elementwise", "vectorized", "copy", "cat", "fill")),
@@ -140,13 +147,22 @@ def by_model_part(model, fn) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model", choices=("InT", "rntsm"), default="InT")
+    parser.add_argument("--model", choices=("InT", "rntsm", *SLOWFAST, *TRANSFORMERS),
+                        default="InT")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
     out = os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read()
     print(out.strip().splitlines()[0])
+    if args.model in SLOWFAST + TRANSFORMERS:
+        clips, _ = render_batch(0, 32, 64, n_distractors=14, dot_size=2)
+        batch = torch.from_numpy(clips).cuda()
+        infer = serve.make_inference_fn(serve.build(model=args.model, length=64), args.model)
+        print(f"{args.model} (the registry's width and depth, f32, seeded init), "
+              "32 clips, T=64:")
+        profile_call(lambda: infer(batch))
+        return 0
     if args.model == "rntsm":
         clips, _ = render_batch(0, 8, 64, n_distractors=14, dot_size=2)
         batch = torch.from_numpy(clips).cuda()

@@ -32,7 +32,8 @@ GROUPS = (  # first match wins; names are lower-cased
     ("fused K1-K3 forward (step + recompute)", ("k1_kernel", "k2_kernel", "k3_kernel")),
     ("conv backward-filter (cuDNN)", ("wgrad",)),
     ("conv backward-data (cuDNN)", ("dgrad",)),
-    ("conv forward (cuDNN)", ("fprop", "conv", "cudnn", "xmma", "implicit")),
+    # cuBLAS's products are sm*_xmma_gemm_*: "xmma" alone names no group
+    ("conv forward (cuDNN)", ("fprop", "conv", "cudnn", "implicit")),
     ("matmul (cuBLAS)", ("gemm", "cublas", "cutlass")),
     ("Adam (foreach)", ("multi_tensor",)),
     ("reductions (BN statistics and their VJP, partial sums)", ("reduce",)),

@@ -241,9 +241,9 @@ def test_torchvision_resnet_trunk_imports_into_rntsm_as_jax(tmp_path):
 @pytest.mark.parametrize("key", ["stem.0.weight", "s1.pathway0_stem.conv.weight"],
                          ids=["video-resnet", "slowfast"])
 def test_later_families_raise_naming_their_item(tmp_path, key):
-    """A SlowFast pickle names the slice that ports it; a torchvision
-    video-ResNet pickle (BN running statistics, a Kinetics head) imports
-    onto its template as the JAX package's importer does."""
+    """A FAIR SlowFast pickle and a torchvision video-ResNet pickle (BN
+    running statistics, a Kinetics head) import onto their templates as the
+    JAX package's importers do."""
     path = str(tmp_path / "other.pth")
     if key.startswith("stem"):
         sd = {key: torch.arange(6.0).reshape(2, 3, 1, 1, 1), "stem.1.weight": torch.ones(2),
@@ -261,9 +261,23 @@ def test_later_families_raise_naming_their_item(tmp_path, key):
         np.testing.assert_array_equal(got["stem"]["kernel"][0, 0, 0], sd[key][:, :, 0, 0, 0].numpy().T)
         assert not got["fc_kernel"].any()  # the Kinetics head is skipped
         return
-    torch.save({key: torch.zeros(1)}, path)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tckpt.load_params(path, template={"x": np.zeros(1)})
+    sd = {key: torch.arange(6.0).reshape(2, 3, 1, 1, 1),
+          "s1.pathway0_stem.bn.weight": torch.ones(2),
+          "s1.pathway0_stem.bn.bias": torch.full((2,), 0.5),
+          "s1.pathway0_stem.bn.running_mean": torch.zeros(2),
+          "s1.pathway0_stem.bn.num_batches_tracked": torch.tensor(3),
+          "head.projection.weight": torch.ones(400, 2), "head.projection.bias": torch.ones(400)}
+    torch.save({f"module.{k}": v for k, v in sd.items()}, path)
+    template = {"slow_stem": {"kernel": np.zeros((1, 1, 1, 3, 2), np.float32),
+                              "bn_scale": np.zeros(2, np.float32),
+                              "bn_bias": np.zeros(2, np.float32)},
+                "head_kernel": np.zeros((2, 1), np.float32), "head_bias": np.zeros(1, np.float32)}
+    got = tckpt.load_params(path, template=template)
+    want = JI.import_slowfast_state_dict(torch.load(path), template)
+    _assert_trees_equal(got, want)
+    np.testing.assert_array_equal(got["slow_stem"]["kernel"][0, 0, 0],
+                                  sd[key][:, :, 0, 0, 0].numpy().T)
+    assert not got["head_kernel"].any()  # the Kinetics head is skipped
 
 
 # ------------------------- meters, grad tools, ES ---------------------------

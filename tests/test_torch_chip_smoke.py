@@ -102,8 +102,8 @@ def test_viz_launch_record_and_signed_map(monkeypatch):
 
 def test_zoo_phase_is_wired_before_the_kernels_line_and_imports_no_jax():
     """Phase 17 (the rest of the recurrent zoo and the video ResNets) runs
-    after phase 16 and before the kernels line, now phase 18, over every
-    name this slice ported; the script imports nothing of JAX."""
+    after phase 16 and before the kernels line, now phase 19, over every
+    name its slice ported; the script imports nothing of JAX."""
     import ast
     import inspect
 
@@ -114,7 +114,7 @@ def test_zoo_phase_is_wired_before_the_kernels_line_and_imports_no_jax():
     assert order == sorted(order)
     doc = chip_smoke.__doc__
     assert doc.index("\n 16. ") < doc.index("\n 17. the rest of the recurrent zoo") \
-        < doc.index("\n 18. one JSON line naming every kernel")
+        < doc.index("\n 19. one JSON line naming every kernel")
     assert set(chip_smoke.RZOO_MODELS) == set(registry.VIDEO_RESNETS) | {
         "stlstm", "fflstm", "lrcn", "lrcn_last", "ffnet"}
     assert set(chip_smoke.RZOO_BF16) <= set(registry.VIDEO_RESNETS)
@@ -124,3 +124,29 @@ def test_zoo_phase_is_wired_before_the_kernels_line_and_imports_no_jax():
     modules |= {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)}
     assert not {m.split(".")[0] for m in modules} & {"jax", "jaxlib", "flax", "optax",
                                                       "pathtracker_tpu"}
+
+
+def test_slowfast_phase_is_wired_before_the_kernels_line_and_imports_no_jax():
+    """Phase 18 (SlowFast and the transformer baselines) runs after phase
+    17 and before the kernels line (phase 19), over every name that slice
+    ported, with SlowFast's dropout checked and the CLIs of one SlowFast
+    and one transformer; the phase imports nothing of JAX."""
+    import inspect
+
+    from pathtracker_torch.models import registry
+
+    main = inspect.getsource(chip_smoke.main)
+    order = [main.index(call) for call in ("rzoo_phase(F", "sfzoo_phase(", '{"kernels"')]
+    assert order == sorted(order)
+    doc = chip_smoke.__doc__
+    assert doc.index("\n 17. the rest of the recurrent zoo") < doc.index(
+        "\n 18. SlowFast") < doc.index("\n 19. one JSON line naming every kernel")
+    assert set(chip_smoke.SFZOO_MODELS) == set(registry.SLOWFAST) | set(registry.TRANSFORMERS)
+    assert set(chip_smoke.SFZOO_DROPOUT) == set(registry.SLOWFAST)
+    assert set(chip_smoke.SFZOO_CLI) <= set(chip_smoke.SFZOO_MODELS)
+    assert {registry.family(n) for n in chip_smoke.SFZOO_CLI} == {"slowfast", "recurrent"}
+    source = "".join(inspect.getsource(f) for f in (
+        chip_smoke.sfzoo_phase, chip_smoke._dropout_gap, chip_smoke._rzoo_run,
+        chip_smoke._rzoo_parity, chip_smoke._rzoo_cli, chip_smoke._rzoo_model))
+    assert not any(word in source for word in ("jax", "flax", "optax", "pathtracker_tpu"))
+    assert "launches" in inspect.getsource(chip_smoke.sfzoo_phase)

@@ -711,6 +711,34 @@ def test_cuda_resident_window_refuses_cpu_clips(cuda):
     assert not graphed.graphs
 
 
+@pytest.mark.gpu
+def test_cuda_slowfast_dropout_draws_in_resident_windows(cuda):
+    """A small SlowFast (width 8, two stages) through graph windows of 2:
+    the step's generator is registered with each captured graph, so the
+    dropout draws on every replay; the losses are finite, one graph serves
+    both windows, and the first window's first loss differs from the same
+    weights' without dropout on the same batch."""
+    import numpy as np
+
+    from pathtracker_torch.data.resident import make_resident_train_step
+    from pathtracker_torch.models.registry import model_selector
+    from pathtracker_torch.train.steps import make_optimizer, make_train_step
+
+    rng = np.random.default_rng(0)
+    clips = torch.from_numpy(rng.integers(0, 256, (8, 8, 32, 32, 3), dtype=np.uint8)).to(cuda)
+    labels = torch.from_numpy(rng.integers(0, 2, (8,), dtype=np.uint8)).to(cuda)
+    models = [model_selector("slowfast", timesteps=8, width=8, stage_blocks=(1, 1),
+                             dropout_rate=rate, device=cuda) for rate in (0.5, 0.0)]
+    graphed = make_resident_train_step(models[0], "slowfast", make_optimizer(1e-3),
+                                       n_clips=8, batch_size=2, fused_steps=2)
+    idx = graphed.indices(0)
+    plain = make_train_step(models[1], "slowfast", make_optimizer(1e-3))(
+        clips.index_select(0, idx), labels.index_select(0, idx))
+    losses = [float(v) for _ in range(2) for v in graphed(clips, labels)["loss"]]
+    assert len(graphed.graphs) == 1 and all(np.isfinite(losses)), losses
+    assert losses[0] != float(plain["loss"])
+
+
 VIZ_ROWS = 40 * 32 * 32  # viz_InT.sh's batch of 40: 40,960 rows
 
 

@@ -98,3 +98,31 @@ def test_the_import_check_covers_every_module_of_the_slices():
                  "ops.gabor", "models.hgru", "models.convgru", "models.convlstm",
                  "models.int_circuit", "ops.int_fused", "train.torch_import"):
         assert f"pathtracker_torch.{name}" in mods, name
+
+
+def test_slowfast_and_transformer_modules_are_checked_and_read_nothing_of_jax():
+    """The SlowFast and transformer modules are among those the import check
+    loads with JAX blocked; their default yaml cfgs are the port's own
+    copies; and no string a module of the package holds (docstrings aside)
+    names a path of the JAX package, so nothing of it is opened or read
+    (chip_smoke.py's strings name the Pallas sites each kernel replaces)."""
+    from pathtracker_torch.models import slowfast_cfg
+
+    mods = set(_modules())
+    for name in ("models.slowfast", "models.slowfast_cfg", "models.transformers",
+                 "models.vit", "ops.favor"):
+        assert f"pathtracker_torch.{name}" in mods, name
+    for path in slowfast_cfg.DEFAULT_CFGS.values():
+        assert os.path.isfile(path) and os.path.commonpath([path, PKG]) == PKG, path
+    offenders = []
+    for path in (p for p in _port_files() if p.startswith(PKG)):
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        docstrings = {id(node.body[0].value) for node in ast.walk(tree)
+                      if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef))
+                      and node.body and isinstance(node.body[0], ast.Expr)
+                      and isinstance(node.body[0].value, ast.Constant)}
+        offenders += [f"{path}:{node.lineno}" for node in ast.walk(tree)
+                      if isinstance(node, ast.Constant) and isinstance(node.value, str)
+                      and "pathtracker_tpu" in node.value and id(node) not in docstrings]
+    assert not offenders, offenders

@@ -126,9 +126,18 @@ def test_registry_and_engine_surface():
         assert not m.use_fused
     for name in ("stlstm", "lrcn", "r3d"):
         assert tregistry.model_selector(name, timesteps=8, device="cpu").training
+    assert tregistry.family("slowfast") == "slowfast" and tregistry.family("slow") == "torchvision"
+    x = torch.zeros(2, 3, 4, 8, 8)
     for name in ("slowfast", "slowfast_nl", "slow", "timesformer", "performer", "lambda"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tregistry.model_selector(name, timesteps=2, device="cpu")
+        extra = (dict(width=8, stage_blocks=(1, 1)) if name.startswith("slow") else
+                 dict(patch_size=4, height=8, width=8) if name == "timesformer" else
+                 dict(height=8, width=8) if name == "lambda" else {})
+        m = tregistry.model_selector(name, timesteps=4, device="cpu", **extra)
+        scores = tserve.make_inference_fn(m, name)(np.zeros((2, 4, 8, 8, 3), np.uint8))
+        assert scores.shape == (2,) and bool(((scores >= 0) & (scores <= 1)).all())
+        with torch.no_grad():
+            out, states, gates = tengine.model_step(m, x, name, test=True)
+        assert out.shape == (2, 1) and states is None and gates is None
     with pytest.raises(NotImplementedError, match="Model not found"):
         tregistry.model_selector("nope", timesteps=2, device="cpu")
     args = types.SimpleNamespace(model="InT", bf16=True, dimensions=8,

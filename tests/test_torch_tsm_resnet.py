@@ -21,6 +21,8 @@ the soft-argmax windows).
 An equation error moves most entries by O(0.1-1).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -147,10 +149,19 @@ def test_match_to_flow_soft_matches_jax(patch):
 B, TS, HW, PATCH = 2, 4, 12, 5
 
 
-def _pair(block, flow, **tkwargs):
+@functools.lru_cache(maxsize=None)
+def _jax_net(block, flow):
+    """The JAX net, its randomised params and the input, from one jitted
+    ``init`` (cached: the tests of one case share it). Eager, the init of
+    the flow-estimation bottleneck net dispatched op by op for ~25 s."""
     x = np.random.default_rng(7).standard_normal((B, 3, TS, HW, HW)).astype(np.float32)
     jm = J.TSMResNet(layers=(1, 1, 1, 1), block=block, flow_estimation=flow, patch=PATCH)
-    params = _randomized(jm.init(jax.random.key(0), jnp.asarray(x))["params"], 8)
+    params = _randomized(jax.jit(jm.init)(jax.random.key(0), jnp.asarray(x))["params"], 8)
+    return jm, params, x
+
+
+def _pair(block, flow, **tkwargs):
+    jm, params, x = _jax_net(block, flow)
     tm = T.TSMResNet(layers=(1, 1, 1, 1), block=block, flow_estimation=flow, patch=PATCH,
                      device="cpu", **tkwargs)
     tm.load_state_dict(export_tsm_resnet_state_dict(params), strict=True)
@@ -173,7 +184,7 @@ def test_tsm_resnet_logits_and_gradients_match_jax(block, flow):
         out = jm.apply({"params": p}, jnp.asarray(x))
         return jnp.sum(jnp.square(out)), out
 
-    (_, want), want_grads = jax.value_and_grad(loss, has_aux=True)(params)
+    (_, want), want_grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
     logits, grads = _gradients(tm, x)
     assert logits.shape == (B, 1)
     np.testing.assert_allclose(logits.detach().numpy(), np.asarray(want), rtol=0, atol=1e-4)

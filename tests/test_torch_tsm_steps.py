@@ -29,6 +29,7 @@ channel's gradient by percents, and the updates parted in 10 entries
 none above 0.1.
 """
 
+import functools
 import types
 
 import jax
@@ -56,12 +57,19 @@ from pathtracker_tpu.utils import metrics as jmetrics
 B, TS, HW, PATCH, LR = 2, 4, 12, 5, 1e-3
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_net():
+    """The JAX net and its params from one jitted ``init``, shared by the
+    tests (eager, the init dispatched op by op for ~20 s a call)."""
+    jm = JM.TSMResNet(layers=(1, 1, 1, 1), patch=PATCH)
+    return jm, jax.jit(jm.init)(jax.random.key(0), jnp.zeros((B, 3, TS, HW, HW)))["params"]
+
+
 def _small(seed=0, **tkwargs):
     rng = np.random.default_rng(seed)
     clips = rng.integers(0, 255, size=(2, B, TS, HW, HW, 3), dtype=np.uint8)
     labels = np.array([[0, 1], [1, 0]], dtype=np.uint8)
-    jm = JM.TSMResNet(layers=(1, 1, 1, 1), patch=PATCH)
-    params = jm.init(jax.random.key(0), jnp.zeros((B, 3, TS, HW, HW)))["params"]
+    jm, params = _jax_net()
     tm = TM.TSMResNet(layers=(1, 1, 1, 1), patch=PATCH, device="cpu", **tkwargs)
     tm.load_state_dict(export_tsm_resnet_state_dict(params), strict=True)
     return jm, params, tm, clips, labels
@@ -94,7 +102,7 @@ def _jax_gradients(jm, params, clips, labels):
         output, _ = jengine.model_step(jm, {"params": p}, imgs, "rntsm")
         return jmetrics.bce_with_logits(output, target)
 
-    return jax.grad(loss)(params)
+    return jax.jit(jax.grad(loss))(params)
 
 
 def _port_gradients(tm, clips, labels):
@@ -108,17 +116,27 @@ def _port_gradients(tm, clips, labels):
     return to_jax_params(grads)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_step():
+    """The JAX side of test_one_train_step_matches_jax, shared by its two
+    cases (the port's remat does not reach it): the gradient of the step's
+    loss, and the params and stats after one J.make_train_step update."""
+    jm, params, _, clips, labels = _small()
+    jgrads = _jax_gradients(jm, params, clips[0], labels[0])
+    jstep = J.make_train_step(jm, "rntsm", J.make_optimizer(LR))
+    jopt_state = J.make_optimizer(LR).init(params)
+    jparams, _, jstats = jstep(jax.tree.map(jnp.copy, params), jopt_state,
+                               jnp.asarray(clips[0]), jnp.asarray(labels[0]))
+    return jgrads, jparams, jstats
+
+
 @pytest.mark.parametrize("remat", [False, True])
 def test_one_train_step_matches_jax(remat):
     jm, params, tm, clips, labels = _small(remat=remat)
     tm.train()
-    jgrads = _jax_gradients(jm, params, clips[0], labels[0])
+    jgrads, jparams, jstats = _jax_step()
     tgrads = _port_gradients(tm, clips[0], labels[0])
-    jstep = J.make_train_step(jm, "rntsm", J.make_optimizer(LR))
-    jopt_state = J.make_optimizer(LR).init(params)
     start = jax.tree.map(np.asarray, params)
-    jparams, _, jstats = jstep(jax.tree.map(jnp.copy, params), jopt_state,
-                               jnp.asarray(clips[0]), jnp.asarray(labels[0]))
     tstats = T.make_train_step(tm, "rntsm", T.make_optimizer(LR))(clips[0], labels[0])
     assert tuple(tstats) == T.TRAIN_KEYS == tuple(jstats)
     for key in T.TRAIN_KEYS:
@@ -168,8 +186,13 @@ def test_engine_dispatches_the_torchvision_family():
         again, states, gates = tengine.model_step(tm, x, "rntsm", test=True)
     assert out.shape == (B, 1) and torch.equal(penalty, torch.ones(1))
     assert torch.equal(out, again) and states is None and gates is None
-    with pytest.raises(NotImplementedError, match="slowfast"):
-        tengine.model_step(tm, x, "slowfast")
+    sf = tregistry.model_selector("slowfast", timesteps=TS, width=8, stage_blocks=(1, 1),
+                                  device="cpu")
+    with torch.no_grad():
+        out, penalty = tengine.model_step(sf, x, "slowfast")
+        again = tengine.model_step(sf, x, "slowfast", test=True)
+    assert out.shape == (B, 1) and torch.equal(penalty, torch.ones(1))
+    assert torch.equal(out, again[0]) and again[1:] == (None, None)
 
 
 def test_registry_and_selector_build_rntsm_only():
@@ -190,8 +213,10 @@ def test_registry_and_selector_build_rntsm_only():
         m = tregistry.model_selector(name, timesteps=2, layers=(1, 1, 1, 1), device="cpu")
         assert not isinstance(m, TM.TSMResNet) and tregistry.family(name) == "torchvision"
     for name in ("slow", "slowfast_nl", "lambda"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tregistry.model_selector(name, timesteps=2, device="cpu")
+        extra = dict(height=4, width=4) if name == "lambda" else dict(width=8,
+                                                                      stage_blocks=(1, 1))
+        m = tregistry.model_selector(name, timesteps=2, device="cpu", **extra)
+        assert not isinstance(m, TM.TSMResNet)
     with pytest.warns(UserWarning, match="pretrained"):
         tregistry.model_selector("rntsm", timesteps=2, pretrained=True, device="cpu")
 

@@ -280,9 +280,15 @@ def test_registry_builds_the_zoo_and_refuses_the_rest():
     for name in ("stlstm", "fflstm", "lrcn", "lrcn_last", "ffnet"):
         assert TR.family(name) == "recurrent"
         assert TR.model_selector(name, **kw).training
-    for name in ("slowfast", "slowfast_nl", "slow", "timesformer", "performer", "lambda"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            TR.model_selector(name, **kw)
+    tiny = {"slowfast": dict(width=8, stage_blocks=(1, 1)),
+            "slowfast_nl": dict(width=8, stage_blocks=(1, 1)),
+            "slow": dict(width=8, stage_blocks=(1, 1)),
+            "timesformer": {}, "performer": {}, "lambda": dict(height=4, width=4)}
+    for name, extra in tiny.items():
+        m = TR.model_selector(name, timesteps=T, device="cpu", **extra)
+        assert m.training and next(m.parameters()).device == torch.device("cpu")
+    assert TR.model_selector("slow", timesteps=T, device="cpu", width=8,
+                             stage_blocks=(1, 1)).head.projection.out_features == 1
     args = type("A", (), dict(model="convlstm", algo="bptt"))()
     with pytest.raises(NotImplementedError, match="legacy"):
         tengine.model_selector(args, T, device="cpu")

@@ -124,7 +124,28 @@ Phases, printed in order; any failure exits non-zero before the last line:
      warm steps, peak memory; (g) rntsm (batch 4, T=8, f32, remat) through
      a window of 2 against eager steps, counts from 0: the three correlation
      wrappers held against their plain versions at the shapes the window
-     gave them, and each one's launches in a replay;
+     gave them, and each one's launches in a replay; (h) data-parallel
+     training on (a)'s clips: (h1) two ranks on the one card, each a process
+     of this script (gloo with CUDA tensors: NCCL takes one card a rank),
+     each taking 90 of train_InT.sh's 180 clips a step with chainE's
+     weights through make_train_step under the data group, counts from 0,
+     bf16 (fused, the main path) and f32 (the eager cell), 2 steps under
+     cudnn.deterministic, held by PARALLEL_PATHS' tolerances: bf16 against
+     one process computing the global batch as the ranks do (_as_ranks),
+     f32 against one process on it; the bf16 ranks' loss gaps to one
+     process beside those of one process on the reversed rows and with
+     each piece of PARALLEL_PIECES computed as the ranks compute it; the
+     ranks bit-equal to each other, each rank's K1-K3 launches 2T a step
+     forward and T backward in bf16, none in f32; each rank's bf16 step ms
+     beside one process's; (h2) NCCL, a world of one
+     (COORDINATOR_ADDRESS, NUM_PROCESSES=1): loop.main with train_InT.sh's
+     flags, --epochs 2 --bf16 --device-data --fused-steps 4 --profile, against
+     the same run without a group, under cudnn.deterministic: losses and
+     validation bit-equal, the window's all-reduces in its graph (counted
+     at capture; the group run's profiled replay holds a device copy more
+     than the run alone for each, but the gradient buckets'), the K1-K3
+     launches, the replayed steps' ms beside phase 13's; the phase's
+     seconds;
  14. attribution (python -m pathtracker_torch.eval.viz, viz_InT.sh's command:
      gen_1_25_64, dist 25, T=64, batch 40, chainE): the K1-K3 wrappers
      against their plain versions at its 40,960 rows; a rendered 120-clip
@@ -2307,12 +2328,474 @@ def resident_phase(serve, F, Co, kernel_rows: list[dict], correlation_rows: list
         del loader
         # (f) The remat policies.
         remat_phase(serve, clips, labels, dev, card)
+        # (h) Data-parallel training on the same clips.
+        parallel_phase(serve, F, kernel_rows, clips, labels, tmp, dev, card)
         del clips, labels, val
         gc.collect()
         torch.cuda.empty_cache()
 
     # (g) rntsm: a window of 2 steps through the correlation kernels.
     rntsm_resident(serve, Co, correlation_rows, dev, card)
+
+
+# ------------------ phase 13 (h): data-parallel training --------------------
+
+PARALLEL_RANKS = 2
+PARALLEL_STEPS = 2  # held steps a side; a rank takes REFERENCE_BATCH / 2 clips
+PARALLEL_TIMED = 3  # further steps a side on the same batches, timed only
+# The ranks are held at tests/test_parallel.py's tolerances for JAX's sharded
+# step: loss rtol 1e-4 and weights atol 5e-4 in bf16, 1e-5 and 2e-5 in f32.
+# The weights by test_cuda_two_gloo_ranks_step_as_one_process's Adam rule:
+# Adam's update is sign-like, lr*g/(|g|+eps) at the first step, so an entry
+# whose gradient sits at rounding distance from zero may move by lr either
+# way; the atol binds where the reference's gradient (the root of its second
+# moment) clears PARALLEL_CUT of its parameter's largest, and at most
+# PARALLEL_FLIPS of those entries may be past it.
+#
+# f32 (train_InT.sh as written, the eager cell) is held against one process
+# on the global batch. The mixed bf16 cell (the main path, the K1-K3
+# kernels) from chainE's weights at T=64 is not: a reordered f32 sum flips
+# bf16 roundings that the 64-step recurrence carries to the loss and the
+# gradient (one process on the same batches with their rows reversed, in an
+# H100 call: step-1 loss 0.012% apart, step 2 0.71%, 69% of a parameter's
+# entries past 5e-4). So bf16 is held against a witness: one process that
+# computes the global batch the way the ranks do (_as_ranks): the cell's
+# convs, kernels and hoisted projections and the readout each on a rank's
+# clips, BN0/BN1 statistics from the ranks' E[x], E[x^2] summed as the
+# all-reduce sums them, the loss the mean of the ranks' means. One process
+# on the global batch, its run on the reversed rows, and one process with
+# one piece at a time computed as the ranks compute it (PARALLEL_PIECES)
+# are printed beside it, not held: they show where the ranks' gap to one
+# process comes from.
+PARALLEL_PATHS = {"bf16": dict(bf16=True, rtol=1e-4, atol=5e-4),
+                  "f32": dict(bf16=False, rtol=1e-5, atol=2e-5)}
+PARALLEL_CUT, PARALLEL_FLIPS = 1e-2, 1e-2
+PARALLEL_PIECES = ("convs", "stats", "projections", "readout", "loss")  # see _as_ranks
+PARALLEL_TIMEOUT = 300
+# Phase 13 (e)'s resident step at K = 1, 4, 8, as PERF.md's section 5 records it.
+RESIDENT_STEP_MS = "172.19-173.08"
+
+
+def _parallel_steps(model, F, clips, labels, mesh, dev, timed: int = PARALLEL_TIMED) -> dict:
+    """PARALLEL_STEPS held steps of make_train_step on the global batches
+    ``clips[i]``, ``labels[i]`` (under ``mesh``, this rank's slice of each),
+    then ``timed`` more on the same batches: the held steps' losses, every
+    step's ms, the K1-K3 launches of the held steps, and after each held
+    step the weights and the root of Adam's second moment, on the host."""
+    from pathtracker_torch.parallel.mesh import data_group, shard_batch
+    from pathtracker_torch.train.steps import make_optimizer, make_train_step
+
+    opt = make_optimizer(LEARNING_RATE)
+    step = make_train_step(model, "InT", opt)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    run = dict(losses=[], ms=[], launches=None, weights=[], rms=[])
+    for k in F.KERNELS:
+        k.launches = 0
+    with data_group(mesh):
+        for i in range(PARALLEL_STEPS + timed):
+            batch = clips[i % PARALLEL_STEPS], labels[i % PARALLEL_STEPS]
+            if mesh is not None:
+                batch = shard_batch(mesh, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = step(*batch)
+            torch.cuda.synchronize()
+            run["ms"].append((time.perf_counter() - t0) * 1e3)
+            if i < PARALLEL_STEPS:
+                run["losses"].append(float(stats["loss"]))
+                run["weights"].append({k: v.detach().to("cpu", copy=True)
+                                       for k, v in model.state_dict().items()})
+                run["rms"].append({n: v.sqrt().cpu() for n, v in zip(names, opt.nu)})
+            if i == PARALLEL_STEPS - 1:
+                run["launches"] = [k.launches for k in F.KERNELS]
+    return run
+
+
+def parallel_rank(rank: str, world: str, store: str, data: str, out: str) -> int:
+    """One rank of phase 13 (h1), run as ``chip_smoke.py --parallel-rank``:
+    gloo on the card, chainE's weights, _parallel_steps on its slices, the
+    bf16 path then f32."""
+    from pathtracker_torch.ops import int_fused as F
+    from pathtracker_torch.parallel import distributed
+    from pathtracker_torch.parallel.mesh import make_mesh
+
+    dev = distributed.initialize(f"file://{store}", int(world), int(rank), backend="gloo")
+    torch.backends.cudnn.deterministic = True  # as the one process it is held to
+    try:
+        clips, labels = (t.to(dev) for t in torch.load(data))
+        mesh = make_mesh()
+        torch.save({name: _parallel_steps(_chaine(path["bf16"], device=dev).train(), F, clips,
+                                          labels, mesh,
+                                          dev, PARALLEL_TIMED if path["bf16"] else 0)
+                    for name, path in PARALLEL_PATHS.items()}, out)
+        distributed.barrier("done")
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+class _RankSum(torch.autograd.Function):
+    """parallel/mesh.py's all-reduce for ranks that are parts of one
+    process: each part gets the parts' sum, and in backward the sum of the
+    parts' cotangents."""
+
+    @staticmethod
+    def forward(ctx, *parts):
+        total = parts[0].clone()
+        for p in parts[1:]:
+            total += p
+        return tuple(total.clone() for _ in parts)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [torch.zeros_like(grads[0]) if g is None else g for g in grads]
+        return _RankSum.forward(ctx, *grads)
+
+
+@contextlib.contextmanager
+def _as_ranks(ranks: int, only: str | None = None):
+    """The witness of phase 13 (h1): the fused InT on a global batch as
+    ``ranks`` ranks of a data group compute it, in one process. Each rank's
+    rows of the fused cell go through K1, the convs, K2 and K3 as on that
+    rank (chunk i of the rows: clips [i*b, (i+1)*b)), with int_fused.stats
+    on each part and the parts' [E[x], E[x^2]] summed as the all-reduce sums
+    them; the hoisted input projections and the readout run on each rank's
+    clips; the loss is the mean of the parts' means. ``only`` names one
+    piece to compute as the ranks do, the rest as one process does:
+    "convs" (the cell's two convs), "stats" (BN0/BN1's statistics),
+    "projections", "readout" or "loss"."""
+    from pathtracker_torch.models import common
+    from pathtracker_torch.models import int_circuit as ic
+    from pathtracker_torch.ops import int_fused as F
+    from pathtracker_torch.train import steps
+
+    conv_rows, dense, readout, bce = (ic._conv_rows, ic.dense, common.target_readout,
+                                      steps.bce_with_logits)
+
+    def rank_conv_rows(z, weight, shape):
+        part = (shape[0] // ranks, *shape[1:])
+        return torch.cat([conv_rows(p, weight, part) for p in z.chunk(ranks)])
+
+    def rank_stats(parts):
+        xs = [p.float() for p in parts]
+        sums = [torch.stack([x.mean(dim=0), x.square().mean(dim=0)]) for x in xs]
+        out = []
+        for total in _RankSum.apply(*sums):  # int_fused.stats after its pmean
+            mean, mean2 = (total / ranks).unbind()
+            out.append((mean, torch.rsqrt(mean2 - mean.square() + F.BN_EPS)))
+        return out
+
+    def rank_step(cp, xt, carry, shape):  # int_circuit._int_cell_step_fused
+        c, bf16 = shape[-1], torch.bfloat16
+        part = (shape[0] // ranks, *shape[1:])
+        inp, att_x, gi_x, inh, exc = (z.reshape(-1, c).chunk(ranks) for z in (*xt, *carry))
+        k1 = [F.k1_attention(exc[i], att_x[i], cp["a_u"].to(bf16), cp["a_u_b"])
+              for i in range(ranks)]
+        conv_i = [conv_rows(gated, cp["w_inh"], part) for gated, _ in k1]
+        new_inh = [F.k2_inhibition(
+            conv_i[i], mean0, rstd0, cp["bn0_scale"], cp["bn0_bias"], inp[i], gi_x[i],
+            inh[i], cp["i_u"].to(bf16), cp["i_u_b"], cp["alpha"], cp["mu"])
+            for i, (mean0, rstd0) in enumerate(rank_stats(conv_i))]
+        conv_e = [conv_rows(z, cp["w_exc"], part) for z in new_inh]
+        new_exc = [F.k3_excitation(
+            conv_e[i], mean1, rstd1, cp["bn1_scale"], cp["bn1_bias"], new_inh[i], inh[i],
+            k1[i][0], exc[i], cp["e_w"].to(bf16), cp["e_w_b"], cp["e_u"].to(bf16),
+            cp["e_u_b"], cp["kappa"], cp["gamma"])
+            for i, (mean1, rstd1) in enumerate(rank_stats(conv_e))]
+        return (torch.cat(new_inh), torch.cat(new_exc)), torch.cat([a for _, a in k1])
+
+    def rank_dense(x, *a, **kw):  # the hoisted projections, [T, B, H, W, C]
+        if x.dim() != 5:
+            return dense(x, *a, **kw)
+        return torch.cat([dense(p, *a, **kw) for p in x.chunk(ranks, dim=1)], dim=1)
+
+    def rank_readout(mod, state, frame):
+        return torch.cat([readout(mod, s, f)
+                          for s, f in zip(state.chunk(ranks), frame.chunk(ranks))])
+
+    def rank_bce(output, target):
+        return sum(bce(o, t) for o, t in zip(output.chunk(ranks), target.chunk(ranks))) / ranks
+
+    def ranks_stats(conv_out):
+        return rank_stats(conv_out.chunk(ranks))[0]
+
+    pieces = {"convs": (ic, "_conv_rows", rank_conv_rows), "stats": (F, "stats", ranks_stats),
+              "projections": (ic, "dense", rank_dense),
+              "readout": (common, "target_readout", rank_readout),
+              "loss": (steps, "bce_with_logits", rank_bce)}
+    patches = ([pieces[only]] if only else
+               [(ic, "_int_cell_step_fused", rank_step)]
+               + [pieces[k] for k in ("projections", "readout", "loss")])
+    saved = [(module, name, getattr(module, name)) for module, name, _ in patches]
+    for module, name, fn in patches:
+        setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def _adam_rule(got: dict, want: dict, rms: dict, atol: float) -> tuple[float, float]:
+    """Two weight sets by the Adam rule (see PARALLEL_PATHS): the largest
+    gap, and the largest share of a parameter's entries past ``atol`` among
+    those whose ``rms`` clears PARALLEL_CUT of the parameter's largest."""
+    worst, share = 0.0, 0.0
+    for k, r in rms.items():
+        gap = (got[k].float() - want[k].float()).abs()
+        worst = max(worst, gap.max().item())
+        clear = r > PARALLEL_CUT * r.max()
+        if clear.any():
+            share = max(share, ((gap > atol) & clear).sum().item() / clear.sum().item())
+    return worst, share
+
+
+def _relative(run, ref) -> list[str]:
+    return [f"{abs(a - c) / abs(c):.3g}" for a, c in zip(run["losses"], ref["losses"])]
+
+
+def _parallel_account(name: str, ranked: dict, ref: dict) -> tuple[str, bool]:
+    """The ranks' run against its reference by PARALLEL_PATHS' tolerances:
+    (the account, whether it holds)."""
+    path = PARALLEL_PATHS[name]
+    rules = [_adam_rule(w, v, r, path["atol"])
+             for w, v, r in zip(ranked["weights"], ref["weights"], ref["rms"])]
+    holds = (all(abs(a - c) <= path["rtol"] * abs(c)
+                 for a, c in zip(ranked["losses"], ref["losses"]))
+             and all(share <= PARALLEL_FLIPS for _, share in rules))
+    account = (f"losses {[round(x, 7) for x in ranked['losses']]}, the reference's "
+               f"{[round(x, 7) for x in ref['losses']]}: relative gaps "
+               f"{_relative(ranked, ref)} (held <= {path['rtol']}); after each step the "
+               f"largest weight gap {[f'{w:.3g}' for w, _ in rules]} and the largest share "
+               f"of a parameter's entries past {path['atol']} where the gradient clears "
+               f"{PARALLEL_CUT} of the parameter's largest {[f'{s:.3g}' for _, s in rules]} "
+               f"(held <= {PARALLEL_FLIPS})")
+    return account, holds
+
+
+@contextlib.contextmanager
+def _counted(module, name: str, record: list):
+    """``module.name`` appends its arguments' shapes to ``record`` a call."""
+    fn = getattr(module, name)
+
+    def counting(tensor, *a, **kw):
+        record.append(tuple(tensor.shape))
+        return fn(tensor, *a, **kw)
+
+    setattr(module, name, counting)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def _eval_reduces(stats_calls: int) -> int:
+    """The all-reduces of one eval step of the fused InT under a group: the
+    cell's statistics (BN0 and BN1 a time step), the loss with the
+    accuracy, and the meters' counts (its readout has no BatchNorm)."""
+    return stats_calls + 2
+
+
+def _collective_activity(trace: str) -> tuple[int, int, int]:
+    """(device kernels named nccl*, device-to-device copies, device kernels)
+    in a chrome trace torch.profiler wrote."""
+    with open(trace) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    copies = sum(1 for e in events
+                 if e.get("cat") == "gpu_memcpy" and "DtoD" in e.get("name", ""))
+    return sum("nccl" in k.lower() for k in kernels), copies, len(kernels)
+
+
+def parallel_phase(serve, F, kernel_rows: list[dict], clips, labels, tmp: str, dev,
+                   card: str) -> None:
+    """Phase 13 (h): (h1) two gloo ranks on the card against one process;
+    (h2) the loop over NCCL in a world of one against no group."""
+    t_phase = time.perf_counter()
+    parallel_ranks(F, kernel_rows, clips, labels, tmp, dev, card)
+    parallel_nccl(F, kernel_rows, tmp, dev, card)
+    print(f"parallel: phase 13 (h) {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+
+
+def parallel_ranks(F, kernel_rows: list[dict], clips, labels, tmp: str, dev,
+                   card: str) -> None:
+    """Phase 13 (h1): two gloo ranks on the card, each a process of this
+    script, against the references of PARALLEL_PATHS."""
+    import gc
+
+    b, t2 = REFERENCE_BATCH, 2 * TIMESTEPS
+    n = PARALLEL_STEPS * b
+    batches = (clips[:n].reshape(PARALLEL_STEPS, b, *clips.shape[1:]),
+               labels[:n].reshape(PARALLEL_STEPS, b))
+    data = os.path.join(tmp, "parallel.pt")
+    torch.save(tuple(x.cpu() for x in batches), data)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    outs = [os.path.join(tmp, f"parallel{r}.pt") for r in range(PARALLEL_RANKS)]
+    logs = [os.path.join(tmp, f"parallel{r}.log") for r in range(PARALLEL_RANKS)]
+    procs = []
+    t0 = time.perf_counter()
+    for r in range(PARALLEL_RANKS):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--parallel-rank", str(r),
+                 str(PARALLEL_RANKS), os.path.join(tmp, "parallel.store"), data, outs[r]],
+                cwd=ROOT, stdout=f, stderr=subprocess.STDOUT))
+    deadline = time.time() + PARALLEL_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    ranks_s = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(logs[r]) as f:
+                fail(f"parallel: rank {r} exited {p.returncode}:\n{f.read()[-4000:]}")
+    ranks = [torch.load(o) for o in outs]
+    want = {"bf16": [PARALLEL_STEPS * t2] * 3 + [PARALLEL_STEPS * TIMESTEPS] * 3,
+            "f32": [0] * 6}
+    for name in PARALLEL_PATHS:
+        for r, rank in enumerate(ranks):
+            run = rank[name]
+            if run["launches"] != want[name]:
+                fail(f"parallel: {name}: rank {r} launched the K1-K3 wrappers "
+                     f"{run['launches']}, expected {want[name]}")
+            if run["losses"] != ranks[0][name]["losses"] or any(
+                    not torch.equal(v, ranks[0][name]["weights"][-1][k])
+                    for k, v in run["weights"][-1].items()):
+                fail(f"parallel: {name}: rank {r}'s losses or weights differ from rank 0's")
+
+    order = torch.arange(b, device=dev).flip(0)
+    runs = {}
+    with _deterministic_cudnn():
+        for name, bf16, witness, rows, timed in (
+                ("bf16", True, None, None, PARALLEL_TIMED),
+                ("bf16 as the ranks", True, {}, None, 0),
+                *((f"bf16 {piece} as the ranks", True, dict(only=piece), None, 0)
+                  for piece in PARALLEL_PIECES),
+                ("bf16 rows reversed", True, None, order, 0),
+                ("f32", False, None, None, 0)):
+            model = _chaine(bf16, device=dev).train()
+            data = batches if rows is None else (batches[0][:, rows], batches[1][:, rows])
+            with (_as_ranks(PARALLEL_RANKS, **witness) if witness is not None
+                  else contextlib.nullcontext()):
+                runs[name] = _parallel_steps(model, F, *data, None, dev, timed)
+            del model
+    bf16, f32 = (_parallel_account(name, ranks[0][name], runs[ref])
+                 for name, ref in (("bf16", "bf16 as the ranks"), ("f32", "f32")))
+    print(f"parallel: {PARALLEL_RANKS} ranks on the card (gloo, CUDA tensors), each "
+          f"{b // PARALLEL_RANKS} clips of the global {b} a step (T={TIMESTEPS}, chainE), "
+          f"{PARALLEL_STEPS} steps, cudnn.deterministic; bf16 (the K1-K3 kernels) against "
+          f"one process computing the global batch as the ranks do: {bf16[0]}; f32 (the "
+          f"eager cell) against one process on the global batch: {f32[0]}; the ranks "
+          f"bit-equal to each other; K1-K3 wrapper launches a rank "
+          f"{ranks[0]['bf16']['launches']} in bf16 (counts from 0), none in f32; "
+          f"{ranks_s:.1f} s for both processes [{card}]", flush=True)
+    plain = runs["bf16"]
+    print(f"parallel: bf16 relative loss gaps to one process on the global batch, step 1 "
+          f"and 2: the ranks {_relative(ranks[0]['bf16'], plain)}, one process as the "
+          f"ranks {_relative(runs['bf16 as the ranks'], plain)}, with only its "
+          + ", ".join(f"{piece} {_relative(runs[f'bf16 {piece} as the ranks'], plain)}"
+                      for piece in PARALLEL_PIECES)
+          + f" as the ranks compute them, on the rows reversed "
+          f"{_relative(runs['bf16 rows reversed'], plain)} (not held) [{card}]", flush=True)
+    for r, rank in enumerate(ranks):
+        ms = rank["bf16"]["ms"]
+        print(f"parallel: bf16 rank {r} step ms {_ms([m / 1e3 for m in ms])}, median of "
+              f"the warm {statistics.median(ms[1:]):.2f} ms; one process at batch {b}: "
+              f"{_ms([m / 1e3 for m in plain['ms']])}, median of the warm "
+              f"{statistics.median(plain['ms'][1:]):.2f} ms (gloo stages each BatchNorm "
+              f"statistics' all-reduce through the host) [{card}]", flush=True)
+    if not (bf16[1] and f32[1]):
+        fail(f"parallel: {PARALLEL_RANKS} ranks against their references: bf16 "
+             f"{'holds' if bf16[1] else 'fails'}, f32 {'holds' if f32[1] else 'fails'}")
+    for row, count in zip(kernel_rows,
+                          [sum(x) for x in zip(*(r["bf16"]["launches"] for r in ranks))]):
+        row["launches_parallel"] = count
+        row["launches"] += count
+    del runs, ranks, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def parallel_nccl(F, kernel_rows: list[dict], tmp: str, dev, card: str) -> None:
+    """Phase 13 (h2): loop.main over NCCL in a world of one against the same
+    run with no group."""
+    import gc
+
+    from pathtracker_torch.parallel import distributed
+    from pathtracker_torch.train import loop
+
+    t2 = 2 * TIMESTEPS
+    argv = _launcher_argv() + ["--epochs", "2", "--bf16", "--device-data", "--fused-steps",
+                               str(RESIDENT_K)]
+    runs, reduces = {}, []
+    # A process whose first torch.profiler session came in the NCCL run
+    # traced no device copies in it (seen on the card); a throwaway session
+    # comes first.
+    profile_window(lambda: torch.zeros(1, device=dev).add_(1))
+    with _deterministic_cudnn():
+        for name, env in (("nccl", dict(COORDINATOR_ADDRESS="file://" + os.path.join(
+                tmp, "nccl.store"), NUM_PROCESSES="1", PROCESS_ID="0")), ("alone", {})):
+            folder = os.path.join(tmp, f"parallel-{name}")
+            with _environ(**env), _counted(torch.distributed, "all_reduce", reduces):
+                _, result, out, launches = _loop_run(
+                    loop, argv + ["--results-dir", folder, "--profile",
+                                  os.path.join(folder, "trace")], F, None)
+            if distributed.is_initialized():
+                fail("parallel: loop.main left its process group joined")
+            runs[name] = (result, out, launches,
+                          _collective_activity(os.path.join(folder, "trace", "trace.json")))
+            del result
+            gc.collect()
+            torch.cuda.empty_cache()
+    (group, out, launches, nccl), (alone, _, alone_launches, nccl_alone) = (
+        runs["nccl"], runs["alone"])
+    spe = RESIDENT_TRAIN // REFERENCE_BATCH
+    val = 2 * (RESIDENT_VAL // REFERENCE_BATCH)
+    # The all-reduces of one window: those of its warm-up and its capture,
+    # less the validations' (one graph; any_rank and the barriers make none
+    # in a world of one).
+    per_window = (len(reduces) - val * _eval_reduces(2 * TIMESTEPS)) // 2
+    want = ([2 * RESIDENT_K * t2 + val * TIMESTEPS] * 3 + [2 * RESIDENT_K * TIMESTEPS] * 3)
+    same = (group["train_log"]["loss"] == alone["train_log"]["loss"]
+            and group["val_log"] == alone["val_log"])
+    if ("Loading parallel finished on device count: 1" not in out or not same
+            or len(group["train_log"]["loss"]) != 2 * spe or launches != want
+            or alone_launches != want or nccl_alone[0] != 0 or not per_window
+            or nccl[0] + nccl[1] - nccl_alone[1] < per_window - RESIDENT_K):
+        fail(f"parallel: NCCL world of one: same losses and validation {same}, "
+             f"{len(group['train_log']['loss'])} losses, launches {launches} and "
+             f"{alone_launches} (expected {want}), (nccl kernels, device-to-device "
+             f"copies, kernels) in a replay {nccl} and {nccl_alone} alone, {per_window} "
+             f"all-reduces a window:\n{out[-2000:]}")
+    for row, count in zip(kernel_rows, launches):
+        row["launches_parallel"] += count
+        row["launches"] += count
+    group_ms = statistics.median(group["meters"]["batch_time"].history) * 1e3
+    alone_ms = statistics.median(alone["meters"]["batch_time"].history) * 1e3
+    print(f"parallel: loop.main over NCCL in a world of one (COORDINATOR_ADDRESS, "
+          f"NUM_PROCESSES=1; train_InT.sh's flags, --epochs 2 --bf16 --device-data "
+          f"--fused-steps {RESIDENT_K}) against the same run with no group, "
+          f"cudnn.deterministic: {2 * spe} losses and {len(group['val_log']['loss'])} "
+          f"validations bit-equal; the profiled replay of a {RESIDENT_K}-step window "
+          f"ran {nccl[0]} NCCL kernels and {nccl[1]} device-to-device copies, alone "
+          f"{nccl_alone[0]} and {nccl_alone[1]}, of {nccl[2]} and {nccl_alone[2]} "
+          f"kernels: the window's {per_window} all-reduces through ProcessGroupNCCL at "
+          f"capture each copy their input first, but the {RESIDENT_K} gradient buckets "
+          f"(held >= {per_window - RESIDENT_K} more copies), and NCCL's in-place sum over "
+          f"a world of one moves nothing; K1-K3 wrapper launches "
+          f"{launches} (warm-up and capture of one graph, and validation); epoch 1's "
+          f"replayed steps median {group_ms:.2f} ms over NCCL, {alone_ms:.2f} ms alone "
+          f"(phase 13's resident step {RESIDENT_STEP_MS} ms) [{card}]", flush=True)
 
 
 # ------------------------- phases 14-16: this slice -------------------------
@@ -2454,12 +2937,13 @@ def viz_phase(F, kernel_rows: list[dict]) -> None:
 
 
 def _chaine(bf16: bool, **model_kwargs):
-    """chainE's InT (dims 32, kernel 7) for serving at T=64 on the card;
-    ``fused=False`` takes the eager cell under --bf16."""
+    """chainE's InT (dims 32, kernel 7) for serving at T=64 on the card
+    (``device=`` another); ``fused=False`` takes the eager cell under
+    --bf16."""
     from pathtracker_torch.eval import serve
 
-    return serve.build(ckpt=CHECKPOINT, length=TIMESTEPS, bf16=bf16,
-                       device=torch.device(DEVICE), **model_kwargs)
+    model_kwargs.setdefault("device", torch.device(DEVICE))
+    return serve.build(ckpt=CHECKPOINT, length=TIMESTEPS, bf16=bf16, **model_kwargs)
 
 
 def export_phase(F, kernel_rows: list[dict], serve_p50_ms) -> None:
@@ -2891,6 +3375,8 @@ def print_resources(native, names) -> dict:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--parallel-rank"]:  # one rank of phase 13 (h1)
+        return parallel_rank(*sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
@@ -2934,7 +3420,7 @@ def main() -> int:
     loop_ms = loop_phase(F, kernel_rows, bare_steps)
     torch.cuda.empty_cache()
     for row in correlation_rows:
-        row["launches_loop"] = 0
+        row["launches_loop"] = row["launches_parallel"] = 0
     resident_phase(serve, F, Co, kernel_rows, correlation_rows, loop_ms)
     torch.cuda.empty_cache()
     viz_phase(F, kernel_rows)

@@ -1,10 +1,11 @@
 """The JAX package's epoch permutation of a device-resident dataset, drawn
 on the device as JAX draws it (pathtracker_tpu/data/resident.py:164-176):
 
-    jax.random.permutation(fold_in(fold_in(key(seed), epoch), 0), n)
+    jax.random.permutation(fold_in(fold_in(key(seed), epoch), dev), n)
 
-with the installed JAX's default ``jax_threefry_partitionable``: a
-Threefry-2x32 key from the seed, two fold-ins, then
+(``dev`` the card's index in the data mesh, 0 on one card) with the
+installed JAX's default ``jax_threefry_partitionable``: a Threefry-2x32 key
+from the seed, two fold-ins, then
 ``ceil(3 ln n / ln(2^32 - 1))`` rounds (jax._src.random._shuffle) of a
 split and a stable sort of the running order by fresh 32-bit draws. One
 round up to n = 1,625, two up to 6.6e9.
@@ -91,9 +92,9 @@ def permutation(k: tuple[int, int], n: int, device):
     return order
 
 
-def epoch_permutation(seed: int, epoch: int, n: int, device):
-    """The permutation of ``n`` resident clips for ``epoch``: the key folded
-    with the epoch, then with the device's index in the data mesh (0: one
-    card), as make_resident_train_step draws it."""
-    k = fold_in(fold_in(key(seed), epoch), 0)
+def epoch_permutation(seed: int, epoch: int, n: int, device, dev: int = 0):
+    """The permutation of a card's ``n`` resident clips for ``epoch``: the
+    key folded with the epoch, then with ``dev``, the card's index in the
+    data mesh (0 on one card), as make_resident_train_step draws it."""
+    k = fold_in(fold_in(key(seed), epoch), dev)
     return permutation(k, n, device)

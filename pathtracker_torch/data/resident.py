@@ -26,6 +26,7 @@ import glob as _glob
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pathtracker_torch import resolve_device
 from pathtracker_torch.data import native as _native
@@ -33,8 +34,9 @@ from pathtracker_torch.data import prng
 from pathtracker_torch.data.prepare import prepare_batch
 from pathtracker_torch.data.tfrecord import read_clip_records
 from pathtracker_torch.engine import DROPOUT_MODELS, model_step
-from pathtracker_torch.train.steps import TRAIN_KEYS
-from pathtracker_torch.utils.metrics import acc_scores, bce_with_logits
+from pathtracker_torch.parallel.mesh import active_mesh, average_gradients, data_group
+from pathtracker_torch.train.steps import TRAIN_KEYS, train_stats
+from pathtracker_torch.utils.metrics import bce_with_logits
 
 
 def load_resident(data_dir: str, timesteps: int, height: int = 32,
@@ -105,9 +107,9 @@ class ResidentBatches:
 def make_resident_train_step(model, model_name: str, optimizer, n_clips: int,
                              batch_size: int, penalty: bool = False,
                              prepare_kwargs: dict | None = None, seed: int = 0,
-                             fused_steps: int = 1):
+                             fused_steps: int = 1, mesh=None):
     """``train_step(clips, labels) -> stats`` over resident tensors on the
-    model's device (resident.py:104-247, one card).
+    model's device (resident.py:104-247).
 
     Each call runs one window of steps: step ``s`` (a count kept here, from
     0) gathers slot ``s % steps_per_epoch`` of the permutation of epoch
@@ -118,7 +120,18 @@ def make_resident_train_step(model, model_name: str, optimizer, n_clips: int,
     ``steps_per_epoch``, ``fused_steps`` and ``windows_per_epoch``,
     ``graphs``, {(k, phase): CUDAGraph} of the windows captured on the card
     (``phase``: micro-steps into the accumulation window at its start), and
-    ``indices(s)``, the clip indices step ``s`` gathers."""
+    ``indices(s)``, the clip indices step ``s`` gathers.
+
+    Over a data mesh (``mesh``, by default the active data group;
+    resident.py:146-194) ``n_clips`` and ``batch_size`` are the global
+    counts, both multiples of the mesh's size; each rank holds its
+    ``n_clips / size`` slice of the clips in rank order and gathers
+    ``batch_size / size`` of them a step from its own permutation, the
+    rank's index folded into the key; ``steps_per_epoch`` comes from the
+    global counts, and ``indices(s)`` are local. The windows run under the
+    mesh, so a graph captured over NCCL holds the statistics' and the
+    gradient's collectives; gloo's cannot be captured, and a mesh over gloo
+    on the card raises."""
     if "rbp" in getattr(model, "grad_method", "bptt"):
         # Each Neumann term's exit test reads a norm back to the host
         # (ops/rbp.py), which a CUDA graph cannot hold.
@@ -127,15 +140,25 @@ def make_resident_train_step(model, model_name: str, optimizer, n_clips: int,
     prep = dict(prepare_kwargs or {})
     params = [p for p in model.parameters() if p.requires_grad]
     device = params[0].device
+    mesh = mesh if mesh is not None else active_mesh()
+    ranks, dev = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    if n_clips % ranks or batch_size % ranks:
+        raise ValueError(f"{n_clips} resident clips and a batch of {batch_size} over "
+                         f"{ranks} ranks: both must be multiples of it")
+    if mesh is not None and device.type == "cuda" and dist.get_backend(mesh.group) != "nccl":
+        raise ValueError(f"resident windows on the card are CUDA graphs, which cannot hold "
+                         f"{dist.get_backend(mesh.group)}'s collectives: train over NCCL, "
+                         "or without --device-data")
     if optimizer.params is None:
         optimizer.init(params)
     fused = max(1, int(fused_steps))
     optimizer.reserve(fused)
     steps_per_epoch = max(n_clips // batch_size, 1)
+    n_local, b_local = n_clips // ranks, batch_size // ranks
     # Static buffers the windows read and write.
     first = torch.zeros((), dtype=torch.int64, device=device)
-    perm = torch.zeros(n_clips, dtype=torch.int64, device=device)
-    lanes = torch.arange(batch_size, device=device)
+    perm = torch.zeros(n_local, dtype=torch.int64, device=device)
+    lanes = torch.arange(b_local, device=device)
     stats = torch.zeros((fused, len(TRAIN_KEYS)), dtype=torch.float32, device=device)
     state = {"count": 0, "epoch": None, "bound": None, "pool": None, "side": None}
     # The generator of the models' stochastic layers (SlowFast's dropout), as
@@ -146,11 +169,13 @@ def make_resident_train_step(model, model_name: str, optimizer, n_clips: int,
     def gather(order, slot):
         """Slot ``slot`` of an epoch's order. Batches tile the permutation;
         the mod keeps a slot valid when the batch does not divide the
-        dataset (resident.py:180-183)."""
-        return order.index_select(0, (slot * batch_size + lanes) % n_clips)
+        dataset, and a slot of the global count valid on a rank's slice
+        (resident.py:180-183)."""
+        return order.index_select(0, (slot * b_local + lanes) % n_local)
 
     def indices(step: int):
-        return gather(prng.epoch_permutation(seed, step // steps_per_epoch, n_clips, device),
+        return gather(prng.epoch_permutation(seed, step // steps_per_epoch, n_local, device,
+                                             dev),
                       step % steps_per_epoch)
 
     def window(clips, labels, k: int) -> None:
@@ -164,10 +189,10 @@ def make_resident_train_step(model, model_name: str, optimizer, n_clips: int,
             loss = bce_with_logits(output, target)
             jv = jv_penalty.mean()
             total = loss + jv * 1e1 if penalty else loss
-            optimizer.apply(torch.autograd.grad(total, params, allow_unused=True), j)
+            optimizer.apply(average_gradients(
+                torch.autograd.grad(total, params, allow_unused=True)), j)
             with torch.no_grad():
-                stats[j].copy_(torch.stack([loss.float(), total.float(), jv.float(),
-                                            *acc_scores(raw_labels.float(), output)]))
+                stats[j].copy_(train_stats(loss, total, jv, raw_labels, output))
 
     graphs: dict = {}
 
@@ -177,6 +202,9 @@ def make_resident_train_step(model, model_name: str, optimizer, n_clips: int,
         the warm-up moved, capture it into the run's pool, and return the
         warm-up's cached memory."""
         kept = [t.clone() for t in _state(optimizer)]
+        if state["pool"] is None and mesh is not None:
+            # The communicator, set up by a collective outside any capture.
+            dist.all_reduce(torch.zeros(1, device=device), group=mesh.group)
         if state["pool"] is None:
             # One side stream for every warm-up and capture of the run: an
             # allocation that outlives a window on a stream (tens of MB) pins
@@ -207,15 +235,22 @@ def make_resident_train_step(model, model_name: str, optimizer, n_clips: int,
         return graph
 
     def train_step(clips, labels):
+        with data_group(mesh):
+            return run(clips, labels)
+
+    def run(clips, labels):
         if clips.device != device or labels.device != device:
             raise ValueError(f"resident clips on {clips.device} and labels on "
                              f"{labels.device}, the model on {device}")
+        if mesh is not None and int(labels.shape[0]) != n_local:
+            raise ValueError(f"{int(labels.shape[0])} resident clips on this rank, "
+                             f"expected {n_local} ({n_clips} over {ranks})")
         count = state["count"]
         slot = count % steps_per_epoch
         k = min(fused, steps_per_epoch - slot)
         epoch = count // steps_per_epoch
         if epoch != state["epoch"]:
-            perm.copy_(prng.epoch_permutation(seed, epoch, n_clips, device))
+            perm.copy_(prng.epoch_permutation(seed, epoch, n_local, device, dev))
             state["epoch"] = epoch
         first.fill_(count)
         optimizer.stage(k)

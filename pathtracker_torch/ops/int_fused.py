@@ -58,6 +58,7 @@ from torch import Tensor
 from torch.autograd.function import once_differentiable
 
 from pathtracker_torch.ops import _native
+from pathtracker_torch.parallel.mesh import active_mesh, pmean
 
 C = 32  # the channel width the CUDA kernels are written for
 BN_EPS = 1e-3  # reference BN eps (InT cells)
@@ -74,10 +75,16 @@ def supported(c: int) -> bool:
 def stats(conv_out):
     """Batch-stat f32 mean and rstd per channel of a [R, C] conv output,
     from E[x²]−E[x]² (int_fused.py:501-508). Plain PyTorch, outside the
-    kernels, as the JAX package leaves it to XLA."""
+    kernels, as the JAX package leaves it to XLA. Under a data group
+    (parallel/mesh.py) E[x] and E[x²] are the global batch's: one [2, C]
+    all-reduce, differentiable, so K2/K3 backward's gradients for the
+    statistics reach every rank's rows through autograd."""
     x = conv_out.float()
     mean = x.mean(dim=0)
-    var = x.square().mean(dim=0) - mean.square()
+    mean2 = x.square().mean(dim=0)
+    if active_mesh() is not None:
+        mean, mean2 = pmean(torch.stack([mean, mean2])).unbind()
+    var = mean2 - mean.square()
     return mean, torch.rsqrt(var + BN_EPS)
 
 

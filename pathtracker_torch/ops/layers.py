@@ -18,6 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from pathtracker_torch.parallel.mesh import active_mesh, pmean
+
 
 def softplus(x):
     """Thresholded softplus, log1p(exp(x)) with the x > 20 passthrough
@@ -121,11 +123,16 @@ def conv3d(x, weight, bias=None, stride=1, padding="SAME", dilation=1):
 
 def batch_norm(x, scale, bias, eps: float = 1e-3):
     """Batch-statistics norm over all axes but the last (channel) axis:
-    biased variance E[x²]−E[x]², statistics in f32 (layers.py:144-162)."""
+    biased variance E[x²]−E[x]², statistics in f32 (layers.py:144-162).
+    Under a data group (parallel/mesh.py) the statistics are the global
+    batch's, the pmean of E[x] and E[x²] that layers.py:155-157 takes:
+    sync-BN."""
     dims = tuple(range(x.dim() - 1))
     xs = x.float()
     mean = xs.mean(dim=dims)
     mean2 = xs.square().mean(dim=dims)
+    if active_mesh() is not None:
+        mean, mean2 = pmean(torch.stack([mean, mean2])).unbind()
     inv = torch.rsqrt(mean2 - mean.square() + eps)
     return ((x - mean.to(x.dtype)) * (inv.to(x.dtype) * scale.to(x.dtype))
             + bias.to(x.dtype))

@@ -17,16 +17,27 @@ The model runs on ``args.device`` (cuda where the namespace has none: the
 command line has no such flag). --device-data keeps both splits on the
 device and gathers the batches there (data/resident.py); with it,
 --fused-steps K runs K steps a window, each window one CUDA graph on the
-card; without it --fused-steps is ignored, as in the JAX package. Paths of
-later slices raise and name their ROADMAP.md item: a multi-process launch
-and --parallel over more than one card (item 13). --parallel on one card is
-one device, as the JAX package's one-device mesh.
+card; without it --fused-steps is ignored, as in the JAX package.
+
+Data parallel (pathtracker_tpu/train/loop.py:222-228,256-319,496-518,
+680-684): with COORDINATOR_ADDRESS set every process runs this same command,
+joins the process group (parallel/distributed.py) on its own card and trains
+under the data group (parallel/mesh.py): each rank reads a disjoint shard of
+the input at batch / processes, BatchNorm, the gradient, the loss and the
+meters are the global batch's, the weights and optimizer state start as
+rank 0's, rank 0 alone writes the run folder, every rank stops at the same
+step, and barriers align the ranks before and after the loop. ``python -m
+pathtracker_torch.train --parallel`` on a host of k > 1 cards starts the k
+processes itself (``launch``). --parallel on one card is one device, as the
+JAX package's one-device mesh.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import signal
+import tempfile
 import time
 import warnings
 import zipfile
@@ -41,6 +52,8 @@ from pathtracker_torch import engine, resolve_device
 from pathtracker_torch.data.pipeline import tfr_data_loader
 from pathtracker_torch.data.resident import (ResidentBatches, load_resident,
                                              make_resident_train_step)
+from pathtracker_torch.parallel import distributed
+from pathtracker_torch.parallel.mesh import data_group, make_mesh, replicate_tree
 from pathtracker_torch.train import checkpoint as ckpt_lib
 from pathtracker_torch.train.steps import (build_lr_schedule, ema_params,
                                            make_eval_step, make_optimizer,
@@ -143,12 +156,12 @@ def results_folder_for(args) -> str:
     return os.path.join(args.results_dir, stem, str(args.name))
 
 
-def init_model(args, timesteps: int):
-    """The model with the run seed's init, on ``args.device`` (cuda where
-    the namespace has none), pretrained weights applied under
-    ``--pretrained``."""
+def init_model(args, timesteps: int, device=None):
+    """The model with the run seed's init, on ``device`` (by default
+    ``args.device``, cuda where the namespace has none), pretrained weights
+    applied under ``--pretrained``."""
     model = engine.model_selector(args, timesteps=timesteps,
-                                  device=getattr(args, "device", None),
+                                  device=device or getattr(args, "device", None),
                                   seed=args.seed)
     if getattr(args, "pretrained", False):
         load_pretrained(model, args.model)
@@ -215,7 +228,7 @@ def validate(val_loader, eval_step, args, results_folder, len_val_loader,
     meters = {k: AverageMeter() for k in
               ("loss", "balacc", "precision", "recall", "f1score", "batch_time")}
     end = time.time()
-    for i, (imgs, target) in enumerate(val_loader):
+    for i, (imgs, target) in enumerate(_together(val_loader)):
         stats = eval_step(imgs, target)
         meters["loss"].update(float(stats["loss"]), 1)
         meters["balacc"].update(float(stats["balacc"]), 1)
@@ -242,6 +255,22 @@ def validate(val_loader, eval_step, args, results_folder, len_val_loader,
             m["f1score"].avg, m["loss"].avg)
 
 
+def _together(iterable, stop=lambda: False):
+    """The items of ``iterable`` while every rank of the process group has
+    one and none asks to ``stop()``: one collective of the two flags a
+    round, so a rank whose shard ends first, or which caught a SIGTERM,
+    stops its peers at the same batch instead of leaving them in a
+    collective it never enters. One process: the items until it ends or
+    stops."""
+    it = iter(iterable)
+    while True:
+        item = next(it, None)
+        ended, stopped = distributed.any_rank([item is None, stop()])
+        if ended or stopped:
+            return
+        yield item
+
+
 @contextmanager
 def _weights(params, values):
     """Run the body with ``values`` copied into ``params``, then restore."""
@@ -260,24 +289,31 @@ def _weights(params, values):
                 p.copy_(v)
 
 
-def _refuse_later_slices(args, device) -> None:
-    """Flags whose paths the port has not reached raise, naming the
-    ROADMAP.md item that brings them."""
-    if os.environ.get("COORDINATOR_ADDRESS"):
-        raise NotImplementedError(
-            "COORDINATOR_ADDRESS is set: multi-process training comes with a "
-            "later slice of pathtracker_torch (ROADMAP.md queue 1 item 13)")
-    if "rbp" in getattr(args, "algo", "bptt") and (
-            getattr(args, "device_data", False) or getattr(args, "fused_steps", 1) > 1):
+def _refuse_later_slices(args, device, mesh=None) -> None:
+    """Flag combinations the port does not run raise before anything is
+    loaded or written."""
+    rbp = "rbp" in getattr(args, "algo", "bptt")
+    if rbp and (getattr(args, "device_data", False) or getattr(args, "fused_steps", 1) > 1):
         # Each Neumann term's exit test reads a norm back to the host
         # (ops/rbp.py): RBP steps run one by one, outside CUDA graphs.
         raise ValueError("--algo rbp runs neither --device-data nor --fused-steps: "
                          "its backward syncs with the host every Neumann term")
-    if args.parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"--parallel over {torch.cuda.device_count()} cards: data-parallel "
-            "training comes with a later slice of pathtracker_torch (ROADMAP.md "
-            "queue 1 item 13); limit CUDA_VISIBLE_DEVICES to one card")
+    if rbp and mesh is not None:
+        # The exit test reads this rank's norm: ranks would take different
+        # numbers of terms, each with its own collectives, and wait forever.
+        raise ValueError("--algo rbp does not train data-parallel: each Neumann "
+                         "term's exit test reads one rank's norm back to the host")
+    if (mesh is not None and getattr(args, "device_data", False) and device.type == "cuda"
+            and torch.distributed.get_backend() != "nccl"):
+        raise ValueError("--device-data on the card runs each window as a CUDA graph, "
+                         f"which cannot hold {torch.distributed.get_backend()}'s "
+                         "collectives: train over NCCL, or without --device-data")
+    if (args.parallel and mesh is None and device.type == "cuda"
+            and torch.cuda.device_count() > 1):
+        raise ValueError(
+            f"--parallel over {torch.cuda.device_count()} cards runs one process a "
+            "card: start them with python -m pathtracker_torch.train (launch), or "
+            "set COORDINATOR_ADDRESS, NUM_PROCESSES and PROCESS_ID in each")
 
 
 def main(args=None, max_steps_per_epoch: int | None = None):
@@ -288,8 +324,33 @@ def main(args=None, max_steps_per_epoch: int | None = None):
     meters (``batch_time`` and ``data_time`` among them)."""
     if args is None:
         args = parser.parse_args()
-    device = resolve_device(getattr(args, "device", None))
-    _refuse_later_slices(args, device)
+    opened = False
+    if os.environ.get("COORDINATOR_ADDRESS") and not distributed.is_initialized():
+        # A multi-process launch: every process runs this command with
+        # COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID set, and joins the
+        # group before any device use.
+        distributed.initialize(device=getattr(args, "device", None))
+        opened = True
+    try:
+        return _main(args, max_steps_per_epoch)
+    finally:
+        if opened:
+            distributed.shutdown()
+
+
+def _main(args, max_steps_per_epoch):
+    if distributed.is_initialized():
+        device, mesh = distributed.device(), make_mesh()
+    else:
+        device, mesh = resolve_device(getattr(args, "device", None)), None
+    _refuse_later_slices(args, device, mesh)
+    with data_group(mesh):
+        return _train(args, max_steps_per_epoch, device, mesh)
+
+
+def _train(args, max_steps_per_epoch, device, mesh):
+    ranks, rank, primary = ((1, 0, True) if mesh is None
+                            else (mesh.size, mesh.rank, distributed.is_primary()))
     assert args.dist is not None, "You must pass a PT distance."
     assert args.speed is not None, "You must pass a PT speed."
     assert args.length is not None, "You must pass a PT length."
@@ -300,39 +361,52 @@ def main(args=None, max_steps_per_epoch: int | None = None):
         optical_flow=args.optical_flow,
         synth_train=args.synth_train, synth_test=args.synth_test)
     device_data = getattr(args, "device_data", False)
+    # Each rank takes batch / ranks clips a step (the JAX package's
+    # per-process batch); one rank, the whole batch.
+    local_batch = max(1, args.batch_size // ranks)
     if device_data:
         print("Loading training dataset (device-resident)")
-        train_clips, train_labels = load_resident(
-            pf_root + "train-*", timesteps=args.length, device=device)
+        train_clips, train_labels = _resident_split(pf_root + "train-*", args, device, mesh)
         print("Loading validation dataset (device-resident)")
-        val_clips, val_labels = load_resident(
-            pf_root + "test-*", timesteps=args.length, device=device)
+        val_clips, val_labels = _resident_split(pf_root + "test-*", args, device, mesh)
         train_loader = None
-        val_loader = ResidentBatches(val_clips, val_labels, args.batch_size,
+        val_loader = ResidentBatches(val_clips, val_labels, local_batch,
                                      shuffle=True, seed=args.seed)
-        len_train_loader = int(train_labels.shape[0])
-        len_val_loader = int(val_labels.shape[0])
+        # The global counts, trimmed to a multiple of the ranks.
+        len_train_loader = int(train_labels.shape[0]) * ranks
+        len_val_loader = int(val_labels.shape[0]) * ranks
     else:
         print("Loading training dataset")
         train_loader = tfr_data_loader(
-            data_dir=pf_root + "train-*", batch_size=args.batch_size,
+            data_dir=pf_root + "train-*", batch_size=local_batch,
             drop_remainder=True, timesteps=args.length, seed=args.seed,
-            shard_index=0, shard_count=1)
+            shard_index=rank, shard_count=ranks)
         print("Loading validation dataset")
         val_loader = tfr_data_loader(
-            data_dir=pf_root + "test-*", batch_size=args.batch_size,
+            data_dir=pf_root + "test-*", batch_size=local_batch,
             drop_remainder=True, timesteps=args.length, seed=args.seed,
-            shard_index=0, shard_count=1)
+            shard_index=rank, shard_count=ranks)
+        if ranks > 1:
+            # Each rank's input: a disjoint file slice where there are at
+            # least as many files as ranks, else every file with records
+            # strided (data/pipeline.py::ClipDataset).
+            print(f"input shard: rank {rank}/{ranks} files={len(train_loader.files)} "
+                  f"record_stride={train_loader._record_stride}")
 
-    results_folder = results_folder_for(args)
+    results_folder, scratch = results_folder_for(args), None
+    if not primary:
+        # Rank 0 alone writes the run folder (every rank computes the same
+        # global metrics); the others run the same flow into a throwaway one.
+        scratch = tempfile.mkdtemp(prefix="pt_rank{}_".format(rank))
+        results_folder = os.path.join(scratch, "results")
     os.makedirs(results_folder, exist_ok=True)
     ES = EarlyStopping(patience=200, results_folder=results_folder)
 
-    model = init_model(args, timesteps)
+    model = init_model(args, timesteps, device)
     names, params = _trained(model)
     print(sum(p.numel() for p in model.parameters()))
     if args.parallel:
-        print("Loading parallel finished on device count:", 1)
+        print("Loading parallel finished on device count:", ranks)
     else:
         print("Loading finished")
 
@@ -411,6 +485,18 @@ def main(args=None, max_steps_per_epoch: int | None = None):
             print(f"auto-resume: saved optimizer state incompatible with the "
                   f"current flags ({e}); starting with fresh moments")
             schedule, optimizer = _make_opt(resume_offset)
+    if mesh is not None:
+        # Every rank starts from rank 0's state: its --ckpt, and the rolling
+        # checkpoint of its run folder, the only real one.
+        args.start_epoch, opt_restored, counts = distributed.broadcast_object(
+            (args.start_epoch, opt_restored, (optimizer.count, optimizer.mini_step)))
+        resume_offset = args.start_epoch * opt_steps_per_epoch
+        if not primary:
+            schedule, optimizer = _make_opt(0 if opt_restored else resume_offset)
+        optimizer.count, optimizer.mini_step = counts
+        replicate_tree(mesh, [*model.state_dict().values(), *optimizer.params,
+                              *optimizer.mu, *optimizer.nu, *(optimizer.acc or ()),
+                              *(optimizer.ema or ())])
 
     prep = {"disentangle_channels": disentangle_channels,
             "pretrained_norm": args.pretrained,
@@ -418,9 +504,9 @@ def main(args=None, max_steps_per_epoch: int | None = None):
     if device_data:
         train_step = make_resident_train_step(
             model, args.model, optimizer, n_clips=len_train_loader,
-            batch_size=args.batch_size, penalty=args.penalty,
+            batch_size=local_batch * ranks, penalty=args.penalty,
             prepare_kwargs=prep, seed=args.seed,
-            fused_steps=getattr(args, "fused_steps", 1))
+            fused_steps=getattr(args, "fused_steps", 1), mesh=mesh)
     else:
         train_step = make_train_step(model, args.model, optimizer,
                                      penalty=args.penalty, prepare_kwargs=prep,
@@ -467,6 +553,8 @@ def main(args=None, max_steps_per_epoch: int | None = None):
                                  extra=_opt_state_extra(optimizer, names))
         return path
 
+    # Align every rank before the first collective: loading skews them.
+    distributed.barrier("pre-train-loop")
     for epoch in range(args.start_epoch, args.epochs):
         meters = {k: AverageMeter() for k in
                   ("batch_time", "data_time", "loss", "balacc", "precision",
@@ -481,10 +569,12 @@ def main(args=None, max_steps_per_epoch: int | None = None):
         else:
             batches = device_prefetch(iter(train_loader), device)
         steps_done = 0  # optimizer steps (a window advances by its length)
-        for idx, (imgs, target) in enumerate(batches):
+        # A SIGTERM on any rank stops every rank before the same step.
+        for idx, (imgs, target) in enumerate(_together(batches,
+                                                       lambda: terminated["flag"])):
             meters["data_time"].update(time.perf_counter() - end)
             # Trace steps (windows) 1-4 of the first epoch (0 warms up).
-            if args.profile and epoch == args.start_epoch and idx == 1:
+            if args.profile and primary and epoch == args.start_epoch and idx == 1:
                 profiler = _start_profiler(device)
             stats = train_step(imgs, target)
             if profiler is not None and idx >= 4:
@@ -534,11 +624,12 @@ def main(args=None, max_steps_per_epoch: int | None = None):
             steps_done += n_sub
             if max_steps_per_epoch is not None and steps_done >= max_steps_per_epoch:
                 break
-            if terminated["flag"]:
+            if terminated["flag"] and mesh is None:
                 break
 
         if profiler is not None:  # epoch shorter than the trace window
             profiler = _stop_profiler(profiler, args.profile)
+        terminated["flag"] = distributed.any_rank([terminated["flag"]])[0]
 
         train_log_dict["loss"].extend(meters["loss"].history)
         train_log_dict["balacc"].extend(meters["balacc"].history)
@@ -581,7 +672,7 @@ def main(args=None, max_steps_per_epoch: int | None = None):
         # best-checkpoint selection ignores this file by name.
         save_rolling(epoch)
         ES(accv, eval_state, epoch)
-        if ES.early_stop:
+        if distributed.any_rank([ES.early_stop])[0]:
             print("Early stopping triggered. Quitting.")
             stop = True
             break
@@ -590,9 +681,49 @@ def main(args=None, max_steps_per_epoch: int | None = None):
             signal.signal(signal.SIGTERM, prev_sigterm)
         except (ValueError, TypeError):
             pass
+    try:
+        # Rank 0 writes its last artifacts after the last collective.
+        distributed.barrier("post-train-loop", timeout_s=120)
+    except RuntimeError as e:
+        print(f"post-train-loop barrier failed ({e}); a peer rank likely exited "
+              "abnormally", flush=True)
+    if scratch is not None:
+        shutil.rmtree(scratch, ignore_errors=True)
+        results_folder = None
     return {"params": model.state_dict(), "results_folder": results_folder,
             "val_log": val_log_dict, "train_log": train_log_dict,
             "early_stopped": stop, "meters": meters}
+
+
+def _resident_split(pattern: str, args, device, mesh):
+    """A split on the device: the whole of it on one rank; over a mesh this
+    rank's slice, in rank order, of the clips trimmed to a multiple of the
+    ranks (the JAX package's batch sharding of the resident arrays)."""
+    if mesh is None:
+        return load_resident(pattern, timesteps=args.length, device=device)
+    clips, labels = load_resident(pattern, timesteps=args.length, device="cpu")
+    n = int(labels.shape[0]) // mesh.size
+    lo = mesh.rank * n
+    return clips[lo:lo + n].to(device), labels[lo:lo + n].to(device)
+
+
+def launch(args, cards: int) -> None:
+    """Train ``args`` data-parallel over ``cards`` cards of this host, one
+    process each (the JAX package drives every local device from one
+    process): the processes meet through a file in a temporary folder, and a
+    failure in any of them ends all and raises here."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="pt_launch_") as tmp:
+        address = "file://" + os.path.join(tmp, "rendezvous")
+        mp.start_processes(_launched, args=(args, address, cards), nprocs=cards,
+                           start_method="spawn")
+
+
+def _launched(rank: int, args, address: str, world: int) -> None:
+    os.environ.update(COORDINATOR_ADDRESS=address, NUM_PROCESSES=str(world),
+                      PROCESS_ID=str(rank), LOCAL_RANK=str(rank))
+    main(args)
 
 
 def _start_profiler(device):

@@ -3,7 +3,11 @@
 One step: batch prep from the raw uint8 batch, forward (family-dispatched),
 BCE loss (+ optional Jacobian penalty * 10, reference mainclean.py:195-196),
 backward, the optimizer update, and the train metrics — no host sync except
-one packed fetch of the step's scalars for logging.
+one packed fetch of the step's scalars for logging. Under a data group
+(parallel/mesh.py: each rank steps on its slice of the global batch) the
+gradients are averaged over the ranks before the clip and Adam, so the clip
+sees the global norm as optax does, and the logged scalars are the global
+batch's.
 
 The JAX package builds its optimizer from optax; this module writes the same
 transformations out over torch tensors and is held to optax by the tests:
@@ -21,6 +25,7 @@ import torch
 
 from pathtracker_torch.data.prepare import prepare_batch
 from pathtracker_torch.engine import model_step
+from pathtracker_torch.parallel.mesh import average_gradients, pmean
 from pathtracker_torch.train.torch_import import state_dict_from_jax, to_jax_params
 from pathtracker_torch.utils.metrics import (acc_scores, bce_with_logits,
                                              eval_accuracy)
@@ -396,6 +401,15 @@ def ema_params(optimizer: Optimizer):
 
 # ---------------------------------- steps -----------------------------------
 
+def train_stats(loss, total, jv, raw_labels, output):
+    """A step's TRAIN_KEYS as one f32 tensor: under a data group
+    (parallel/mesh.py) the losses are the ranks' mean and the meters the
+    global batch's, so every rank logs the numbers the JAX package logs for
+    its sharded batch."""
+    losses = pmean(torch.stack([loss.float(), total.float(), jv.float()]))
+    return torch.cat([losses, torch.stack(acc_scores(raw_labels.float(), output))])
+
+
 def make_train_step(model, model_name: str, optimizer: Optimizer,
                     penalty: bool = False, prepare_kwargs: dict | None = None,
                     seed: int = 0):
@@ -422,10 +436,10 @@ def make_train_step(model, model_name: str, optimizer: Optimizer,
         loss = bce_with_logits(output, target)
         jv = jv_penalty.mean()
         total = loss + jv * 1e1 if penalty else loss
-        optimizer.step(torch.autograd.grad(total, params, allow_unused=True))
+        optimizer.step(average_gradients(
+            torch.autograd.grad(total, params, allow_unused=True)))
         with torch.no_grad():
-            packed = torch.stack([loss.float(), total.float(), jv.float(),
-                                  *acc_scores(raw_labels.float(), output)])
+            packed = train_stats(loss, total, jv, raw_labels, output)
         host = packed.cpu().numpy()  # single host fetch / sync point
         return dict(zip(TRAIN_KEYS, host))
 
@@ -445,9 +459,9 @@ def make_eval_step(model, model_name: str, prepare_kwargs: dict | None = None):
         raw_labels = torch.as_tensor(raw_labels).to(device)
         imgs, target = prepare_batch(raw_imgs, raw_labels, **prep)
         output, _ = model_step(model, imgs, model_name)
-        packed = torch.stack([bce_with_logits(output, target).float(),
-                              *acc_scores(target, output),
-                              eval_accuracy(target, output)])
+        loss, acc = pmean(torch.stack([bce_with_logits(output, target).float(),
+                                       eval_accuracy(target, output)])).unbind()
+        packed = torch.stack([loss, *acc_scores(target, output), acc])
         stats = dict(zip(EVAL_KEYS, packed.cpu().numpy()))  # one scalar fetch
         stats["output"] = output
         return stats

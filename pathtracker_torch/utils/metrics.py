@@ -21,13 +21,24 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from pathtracker_torch.parallel.mesh import active_mesh, psum
+
 
 def _scores(target, pred):
+    """The four scores from the batch's counts: correct predictions, true
+    positives, predicted positives and clips. Under a data group
+    (parallel/mesh.py) the counts are summed over the ranks first, so the
+    scores are the global batch's, as the JAX package computes them on its
+    sharded batch; averaging the ranks' scores would not be (precision and
+    f1 are not linear in the counts)."""
     correct = (pred == target).float()
     tp = (correct * (target == 1)).sum()
-    batch = target.shape[0]
-    tpfp = pred.sum().clamp_min(1e-6)
-    return (correct.mean() * 100.0, tp / tpfp, tp / batch,
+    n_correct, n_pred, batch = correct.sum(), pred.sum(), target.shape[0]
+    if active_mesh() is not None:
+        n_correct, tp, n_pred, batch = psum(torch.stack(
+            [n_correct, tp, n_pred, torch.full_like(tp, batch)])).unbind()
+    tpfp = n_pred.clamp_min(1e-6)
+    return (n_correct / batch * 100.0, tp / tpfp, tp / batch,
             (2.0 * tp) / (batch + tpfp))
 
 

@@ -150,3 +150,50 @@ def test_slowfast_phase_is_wired_before_the_kernels_line_and_imports_no_jax():
         chip_smoke._rzoo_parity, chip_smoke._rzoo_cli, chip_smoke._rzoo_model))
     assert not any(word in source for word in ("jax", "flax", "optax", "pathtracker_tpu"))
     assert "launches" in inspect.getsource(chip_smoke.sfzoo_phase)
+
+
+def test_parallel_phase_is_wired_into_the_resident_phase_and_its_ranks():
+    """Phase 13 (h) runs on phase 13's clips before they are dropped, and
+    before the kernels line; ``chip_smoke.py --parallel-rank`` is one of
+    its ranks, dispatched before the card check so that a rank prints no
+    result line; the phase imports nothing of JAX."""
+    import inspect
+
+    resident = inspect.getsource(chip_smoke.resident_phase)
+    assert resident.index("remat_phase(") < resident.index("parallel_phase(") \
+        < resident.index("del clips")
+    main = inspect.getsource(chip_smoke.main)
+    assert main.index('"--parallel-rank"') < main.index("torch.cuda.is_available()")
+    assert main.index("resident_phase(") < main.index('{"kernels"')
+    assert "(h) data-parallel" in chip_smoke.__doc__
+    assert set(chip_smoke.PARALLEL_PATHS) == {"bf16", "f32"}
+    source = "".join(inspect.getsource(f) for f in (
+        chip_smoke.parallel_phase, chip_smoke.parallel_ranks, chip_smoke.parallel_nccl,
+        chip_smoke.parallel_rank, chip_smoke._parallel_steps, chip_smoke._parallel_account,
+        chip_smoke._as_ranks, chip_smoke._adam_rule))
+    assert not any(word in source for word in ("jax", "flax", "optax", "pathtracker_tpu"))
+    assert 'backend="gloo"' in source and "launches_parallel" in source
+
+
+def test_collective_activity_and_weight_gaps_read_what_they_say(tmp_path):
+    import json
+
+    import torch
+
+    trace = tmp_path / "trace.json"
+    trace.write_text(json.dumps({"traceEvents": [
+        {"cat": "kernel", "name": "ncclDevKernel_AllReduce_Sum_f32_RING_LL"},
+        {"cat": "kernel", "name": "k1_kernel"},
+        {"cat": "gpu_memcpy", "name": "Memcpy DtoD (Device -> Device)"},
+        {"cat": "gpu_memcpy", "name": "Memcpy HtoD (Pinned -> Device)"},
+        {"cat": "cpu_op", "name": "nccl:all_reduce"}]}))
+    assert chip_smoke._collective_activity(str(trace)) == (1, 1, 2)
+    want = {"w": torch.zeros(4, 5), "n": torch.zeros((), dtype=torch.int64)}
+    got = {"w": torch.zeros(4, 5), "n": torch.ones((), dtype=torch.int64)}
+    got["w"][0, :3] = torch.tensor([1e-3, -3e-4, 2e-3])
+    # The Adam rule: entry (0, 2)'s gradient is below a hundredth of the
+    # largest, so only (0, 0) of the 19 clear entries counts against the atol.
+    rms = {"w": torch.ones(4, 5)}
+    rms["w"][0, 2] = 1e-3
+    worst, share = chip_smoke._adam_rule(got, want, rms, 5e-4)
+    assert abs(worst - 2e-3) < 1e-9 and abs(share - 1 / 19) < 1e-7

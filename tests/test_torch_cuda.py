@@ -832,3 +832,108 @@ def test_cuda_resident_windows_refuse_rbp(cuda):
     with pytest.raises(ValueError, match="rbp"):
         make_resident_train_step(model, "InT", make_optimizer(1e-3), n_clips=8,
                                  batch_size=4, fused_steps=4)
+
+
+def _two_gloo_ranks(tmp_path, cases):
+    """tests/torch_parallel_worker.py on the card as two gloo ranks (NCCL
+    takes one card a rank): their results."""
+    import subprocess
+
+    torch.save(cases, tmp_path / "in.pt")
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_parallel_worker.py")
+    procs, logs = [], []
+    for rank in range(2):
+        logs.append(open(tmp_path / f"rank{rank}.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, worker, str(rank), "2", str(tmp_path / "store"),
+             str(tmp_path / "in.pt"), str(tmp_path / f"out{rank}.pt"), "cuda", "gloo"],
+            stdout=logs[-1], stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=300)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    for rank, p in enumerate(procs):
+        assert p.returncode == 0, (tmp_path / f"rank{rank}.log").read_text()[-4000:]
+    return [torch.load(tmp_path / f"out{rank}.pt") for rank in range(2)]
+
+
+@pytest.mark.gpu
+def test_cuda_two_gloo_ranks_step_as_one_process(cuda, tmp_path, monkeypatch):
+    """Two ranks on the card, each a process taking half of a global batch
+    of 8 through the fused bf16 cell (the K1-K3 kernels launched on each),
+    against one process's step on the whole batch from the same weights:
+    tests/test_parallel.py's bf16 tolerances, loss rtol 1e-4 and weights
+    atol 5e-4, the weights by an Adam rule: every entry within 2*lr, and
+    within the atol where the gradient clears a hundredth of its parameter's
+    largest, but for one in a hundred of those. Adam's first update is
+    sign-like, lr*g/(|g|+eps), and each rank's conv weight gradient leaves
+    cuDNN rounded to bf16, so the ranks' sum is not one process's rounding
+    of the whole: an entry whose gradient is small beside its halves may
+    flip (seen: 13 of 9,216 in w_exc, each within 2*lr)."""
+    import numpy as np
+
+    from pathtracker_torch.train.steps import make_optimizer, make_train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    lr, model = 1e-3, dict(dimensions=C, timesteps=4, kernel_size=3, dtype="bfloat16")
+    state = {k: v.cpu() for k, v in InT(seed=0, device=cuda, **model).state_dict().items()}
+    rng = np.random.default_rng(0)
+    clips = torch.from_numpy(rng.integers(0, 256, (1, 8, 4, 32, 32, 3), dtype=np.uint8))
+    labels = torch.from_numpy(rng.integers(0, 2, (1, 8), dtype=np.uint8))
+    ranks = _two_gloo_ranks(tmp_path, {"step": dict(
+        kind="step", model=model, state=state, lr=lr, penalty=False, clips=clips,
+        labels=labels)})
+    one = InT(device=cuda, **model)
+    one.load_state_dict(state)
+    opt = make_optimizer(lr)
+    want = make_train_step(one, "InT", opt)(clips[0].to(cuda), labels[0].to(cuda))
+    rms = dict(zip([n for n, p in one.named_parameters() if p.requires_grad],
+                   (v.sqrt() for v in opt.nu)))
+    got = [r["step"] for r in ranks]
+    for r in got:
+        assert bool(r["fused"]) and (r["launches"] == torch.tensor([8, 8, 8, 4, 4, 4])).all()
+    assert torch.equal(got[0]["stats"], got[1]["stats"])
+    assert float(got[0]["stats"][0, 0]) == pytest.approx(float(want["loss"]), rel=1e-4)
+    for k, v in one.state_dict().items():
+        assert torch.equal(got[0]["state"][k], got[1]["state"][k]), k
+        gap = (got[0]["state"][k] - v.cpu()).abs()
+        assert gap.max() <= 2 * lr * (1 + 1e-3), (k, gap.max())
+        if k in rms and rms[k].max() > 0:
+            clear = (rms[k] > 1e-2 * rms[k].max()).cpu()
+            share = float((clear & (gap > 5e-4)).sum() / clear.sum())
+            assert share <= 0.01, (k, share)
+
+
+@pytest.mark.gpu
+def test_cuda_nccl_world_of_one_window_matches_eager(cuda, tmp_path, monkeypatch):
+    """A resident window captured under an NCCL group of one (its
+    statistics' and gradient's all-reduces inside the graph) against eager
+    steps under the same group on the batches it gathers, as
+    test_cuda_resident_windows_match_eager_steps holds them."""
+    from pathtracker_torch.parallel import distributed
+    from pathtracker_torch.parallel.mesh import data_group, make_mesh
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    distributed.initialize(f"file://{tmp_path / 'store'}", 1, 0)
+    try:
+        with data_group(make_mesh()):
+            clips, labels, models, opts, graphed, eager = _resident_pair(
+                cuda, dict(lr=1e-3), 2)
+            losses = []
+            for _ in range(2):
+                stats = graphed(clips, labels)
+                for j, loss in enumerate(stats["loss"]):
+                    idx = graphed.indices(len(losses))
+                    want = eager(clips.index_select(0, idx), labels.index_select(0, idx))
+                    losses.append((float(loss), float(want["loss"])))
+        assert len(graphed.graphs) == 1
+        assert all(got == want for got, want in losses), losses
+        _assert_window_matches_eager(opts, models, 1e-3, len(losses))
+    finally:
+        distributed.shutdown()

@@ -321,24 +321,31 @@ def test_profile_writes_a_trace(data_root, tmp_path, capsys):
 @pytest.mark.parametrize("flags,env,item", [
     (["--device-data"], {}, None),
     (["--fused-steps", "2"], {}, None),
-    ([], {"COORDINATOR_ADDRESS": "localhost:1234"}, "item 13"),
-    (["--parallel"], {"cards": 2}, "item 13"),
+    ([], {"COORDINATOR_ADDRESS": "file"}, None),
+    (["--parallel"], {"cards": 2}, "one process a card"),
 ], ids=["device-data", "fused-steps", "coordinator", "parallel-cards"])
 def test_later_slice_flags_raise_naming_their_item(data_root, tmp_path, monkeypatch,
                                                    flags, env, item):
-    """Item 13's flags raise before anything is written; item 9's
-    (--device-data, and --fused-steps, which JAX ignores without it) train
-    since the resident path landed."""
-    if item is None:
-        result = _train(tmp_path, *flags)
-        assert len(result["train_log"]["loss"]) == STEPS
-        return
+    """Item 9's flags (--device-data, and --fused-steps, which JAX ignores
+    without it) train since the resident path landed; item 13's
+    COORDINATOR_ADDRESS trains since its data-parallel half did (a world of
+    one process here, its group left when main returns); --parallel over
+    more cards than one, called in one process, raises before anything is
+    written and names the launcher that starts a process a card."""
+    from pathtracker_torch.parallel import distributed
+
     if env.pop("cards", None):
         monkeypatch.setattr(tloop, "resolve_device", lambda d: torch.device("cuda"))
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match=item):
+        monkeypatch.setenv(k, f"file://{tmp_path / 'rendezvous'}")
+        monkeypatch.setenv("NUM_PROCESSES", "1")
+    if item is None:
+        result = _train(tmp_path, *flags)
+        assert len(result["train_log"]["loss"]) == STEPS
+        assert not distributed.is_initialized()
+        return
+    with pytest.raises(ValueError, match=item):
         _train(tmp_path, *flags)
     assert not (tmp_path / "8_1_1").exists()
 

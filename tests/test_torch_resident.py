@@ -218,14 +218,27 @@ def test_main_caps_optimizer_steps_under_fused_windows(data_root, extra):
     assert int(count) == (1 if extra else 2)
 
 
-@pytest.mark.parametrize("env,cards", [({"COORDINATOR_ADDRESS": "localhost:1234"}, 1),
+@pytest.mark.parametrize("env,cards", [({"COORDINATOR_ADDRESS": "file"}, 1),
                                        ({}, 2)], ids=["coordinator", "parallel-cards"])
 def test_item_13_refusals_come_before_the_resident_load(data_root, monkeypatch, env, cards):
+    """Under COORDINATOR_ADDRESS the process group is joined before the
+    resident load, which then reads the split on the host to keep this
+    rank's slice, and left when main ends, here by the load's failure;
+    --parallel over two cards in one process is refused before it."""
+    from pathtracker_torch.parallel import distributed
+
     if cards > 1:
         monkeypatch.setattr(tloop, "resolve_device", lambda d: torch.device("cuda"))
         monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    monkeypatch.setattr(tloop, "load_resident", lambda *a, **kw: pytest.fail("loaded"))
-    with pytest.raises(NotImplementedError, match="item 13"):
+    for k in env:
+        monkeypatch.setenv(k, f"file://{data_root / 'rendezvous'}")
+
+    def load(pattern, timesteps, device=None):
+        assert distributed.world_size() == 1 and str(device) == "cpu"
+        raise LookupError("loaded")
+
+    monkeypatch.setattr(tloop, "load_resident", load)
+    with pytest.raises(LookupError if env else ValueError,
+                       match="loaded" if env else "one process a card"):
         tloop.main(_args("--parallel", results_dir=str(data_root / "r")))
+    assert not distributed.is_initialized()

@@ -145,7 +145,21 @@ Phases, printed in order; any failure exits non-zero before the last line:
      at capture; the group run's profiled replay holds a device copy more
      than the run alone for each, but the gradient buckets'), the K1-K3
      launches, the replayed steps' ms beside phase 13's; the phase's
-     seconds;
+     seconds; (i) model-parallel training, each rank a process of this
+     script (``--model-parallel-rank``, gloo on the card): (i1) rntsm at the
+     registry's width under FSDP over 2 ranks, global batch 4, T=64, f32, 2
+     SGD steps under cudnn.deterministic against one process computing the
+     batch as the ranks do (_as_data_ranks), by MP_RNTSM_TOL, one process
+     on the batch printed; every layer-4 kernel split in halves over
+     'data'; each rank's correlation launches; (i2) chainE's InT (dims 32,
+     kernel 7, T=64, --bf16) under dp x tp and dp x sp as 1 x 2, one step
+     of 32 clips, against one process computing the batch as the ranks do
+     (_as_model_ranks, _as_space_ranks) by PARALLEL_PATHS["bf16"], one
+     process printed,
+     all six K1-K3 kernels 2T/T times on every rank; (i3) python -m
+     pathtracker_torch.parallel.dryrun --ranks 4 on the card; (i4) FSDP, TP
+     and SP meshes of one rank over NCCL, each step bit-equal to no group;
+     each gap beside its tolerance and the phase's seconds;
  14. attribution (python -m pathtracker_torch.eval.viz, viz_InT.sh's command:
      gen_1_25_64, dist 25, T=64, batch 40, chainE): the K1-K3 wrappers
      against their plain versions at its 40,960 rows; a rendered 120-clip
@@ -2798,6 +2812,561 @@ def parallel_nccl(F, kernel_rows: list[dict], tmp: str, dev, card: str) -> None:
           f"(phase 13's resident step {RESIDENT_STEP_MS} ms) [{card}]", flush=True)
 
 
+# ------------------ phase 13 (i): model-parallel training -------------------
+
+MP_RANKS = 2
+# (i1) rntsm at the registry's width under FSDP: phase 10's global batch
+# (4 clips, T=64, f32), 2 a rank, 2 SGD steps at 1e-2 from the seeded init
+# (SGD as tests/test_parallel.py's rntsm FSDP test: the update is the
+# gradient, where Adam's sign-like first update flips the entries whose
+# gradient sits at rounding distance from zero), under cudnn.deterministic,
+# against one process that computes the global batch as the ranks do
+# (_as_data_ranks: each BatchNorm's statistics from the two halves' E[x],
+# E[x^2] summed as the all-reduce sums them, the loss the mean of the
+# halves'). Step 1: the loss within rtol 1e-5 (test_parallel's f32), and
+# the update by test_torch_tsm_steps.py's rule for f32 ResNet gradients,
+# normalised by the parameter's largest: within 0.1 but for 2 entries a
+# parameter, the mean of the other entries within 2e-2. Step 2 starts from
+# weights that differ by the order of the gradient's f32 sums (the ranks'
+# halves reduced, against one backward), which flips a ReLU mask or an
+# argmax here and there (a rehearsal on the CPU at T=4: step-2 loss 1.9e-5
+# apart, 79 of a BatchNorm's 1,024 update entries past 0.1), so its loss is
+# held to a twentieth of the move the step makes (weights left stale or
+# updated twice would miss it by the whole move; at this rate step 1
+# lifts the loss from 0.7286 to 1.0376, a move of 0.309) and its update
+# printed. One process on the global batch is printed beside it, not held:
+# it was 1.06e-5 from the ranks at step 1 (the statistics' summation order
+# through 53 BatchNorms) and 5.6e-4 at step 2. Before each comparison the
+# kernels are held against their plain versions at the ranks' shapes.
+MP_RNTSM_STEPS = 2
+MP_RNTSM_LR = 1e-2
+MP_RNTSM_TOL = dict(rtol=1e-5, update=0.1, flips=2, mean=2e-2, move=0.05)
+# (i2) InT at train_InT.sh's width from chainE, --bf16, dp x tp and dp x sp
+# as 1 x 2: one step of a global batch of 32 clips, cut from 180 so that
+# gloo's host copies (a collective a conv, a projection and a BatchNorm
+# statistic, each time step) stay short. Held by PARALLEL_PATHS["bf16"]
+# (test_parallel's: loss rtol 1e-4, weights atol 5e-4 by the Adam rule) against
+# one process that computes the batch as the ranks do (_as_model_ranks: the
+# convs and projections by output-channel halves; _as_space_ranks: the
+# convs by halves of H with their halo rows, BN0/BN1's statistics from the
+# halves' E[x], E[x^2] summed as the all-reduce sums them, the readout's
+# pool the halves' mean): phase 13 (h) found a reordered f32 sum of the
+# statistics carried by the bf16 recurrence to 0.72% of the step-1 loss at
+# T=64, so one process on the batch is printed beside it, not held.
+MP_INT_BATCH = 32
+MP_TIMEOUT = 300
+MP_DRYRUN_RANKS = 4
+MP_DRYRUN_MODES = ("dp step ok", "fsdp step ok", "rntsm fsdp step ok", "dp x tp step ok",
+                   "dp x sp step ok", "dp x ep moe step ok", "pp x dp pipeline step ok")
+
+
+class _SGD:
+    """Plain SGD with the Optimizer's binding (``init``, ``step``): its
+    update is the gradient itself."""
+
+    def __init__(self, lr: float):
+        self.lr, self.params = lr, None
+
+    def init(self, params):
+        self.params = [p.detach() for p in params]
+        return self
+
+    @torch.no_grad()
+    def step(self, grads):
+        for p, g in zip(self.params, grads, strict=True):
+            if g is not None:
+                p.sub_(self.lr * g)
+
+
+def _mp_steps(model, model_name: str, F, Co, layout, clips, labels, steps: int,
+              sgd: float | None = None) -> dict:
+    """``steps`` Adam steps (SGD steps at ``sgd``) of make_train_step on a
+    global batch, under ``layout`` (this rank's block of the batch) or none:
+    the losses, the whole weights before and after each step (gather_params
+    under a layout) and, with no layout, the root of Adam's second moment;
+    the K1-K3 and correlation launches from 0; each step's ms; the peak
+    memory this process allocated over the steps."""
+    from pathtracker_torch.parallel.mesh import gather_params
+    from pathtracker_torch.train.steps import make_optimizer, make_train_step
+
+    opt = _SGD(sgd) if sgd else make_optimizer(LEARNING_RATE)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    start = (gather_params(layout) if layout is not None else
+             {n: p.detach() for n, p in model.named_parameters() if p.requires_grad})
+    start = {k: v.to("cpu", copy=True) for k, v in start.items()}
+    step = make_train_step(model, model_name, opt, layout=layout)
+    batch = (clips, labels) if layout is None else layout.local_batch((clips, labels))
+    run = dict(losses=[], weights=[start], rms=[], ms=[])
+    for k in (*F.KERNELS, *Co.KERNELS):
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = step(*batch)
+        torch.cuda.synchronize()
+        run["ms"].append((time.perf_counter() - t0) * 1e3)
+        if not all(np.isfinite(v) for v in stats.values()):
+            fail(f"model parallel: {model_name} stats {stats}")
+        run["losses"].append(float(stats["loss"]))
+        weights = (gather_params(layout) if layout is not None
+                   else dict(zip(names, (p.detach() for p in opt.params))))
+        run["weights"].append({k: v.to("cpu", copy=True) for k, v in weights.items()})
+        if layout is None and not sgd:
+            run["rms"].append({n: v.sqrt().cpu() for n, v in zip(names, opt.nu)})
+    run["launches"] = [k.launches for k in F.KERNELS]
+    run["corr_launches"] = [k.launches for k in Co.KERNELS]
+    run["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if layout is not None:
+        run["specs"] = layout.specs
+        run["shards"] = dict(zip(layout.names, (tuple(s.shape) for s in layout.shards)))
+        run["empty"] = all(p.numel() == 0 for p in layout.params)
+    return run
+
+
+def _rntsm_model(dev):
+    from pathtracker_torch.eval import serve
+
+    return serve.build(model="rntsm", length=TIMESTEPS, remat_blocks=True, device=dev).train()
+
+
+def model_parallel_rank(rank: str, world: str, store: str, data: str, out: str) -> int:
+    """One rank of phase 13 (i1) and (i2), run as ``chip_smoke.py
+    --model-parallel-rank``: gloo on the card; rntsm under FSDP over the
+    world, then chainE's InT under dp x tp and dp x sp (1 x world)."""
+    from pathtracker_torch.ops import correlation as Co
+    from pathtracker_torch.ops import int_fused as F
+    from pathtracker_torch.parallel import distributed
+    from pathtracker_torch.parallel import mesh as M
+
+    dev = distributed.initialize(f"file://{store}", int(world), int(rank), backend="gloo")
+    torch.backends.cudnn.deterministic = True  # as the one process it is held to
+    try:
+        batches = {k: tuple(t.to(dev) for t in v) for k, v in torch.load(data).items()}
+        model = _rntsm_model(dev)
+        runs = {"rntsm": _mp_steps(model, "rntsm", F, Co,
+                                   M.fsdp_shard_params(M.make_mesh(), model),
+                                   *batches["rntsm"], MP_RNTSM_STEPS, sgd=MP_RNTSM_LR)}
+        del model
+        torch.cuda.empty_cache()
+        n = int(world)
+        for name, layout_of in (
+                ("tp", lambda m: M.shard_params_2d(M.make_mesh_2d(1, n), m)),
+                ("sp", lambda m: M.spatial_layout(M.make_mesh_2d(1, n, ("data", "space")), m))):
+            model = _chaine(True, device=dev).train()
+            runs[name] = _mp_steps(model, "InT", F, Co, layout_of(model), *batches["int"], 1)
+            del model
+        torch.save(runs, out)
+        distributed.barrier("done")
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+@contextlib.contextmanager
+def _patched(*patches):
+    saved = [(module, name, getattr(module, name)) for module, name, _ in patches]
+    for module, name, fn in patches:
+        setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def _as_data_ranks(ranks: int):
+    """The witness of phase 13 (i1): one process computing rntsm's global
+    batch as ``ranks`` ranks of a data group do: each BatchNorm's
+    statistics from the ranks' blocks of the frames (E[x] and E[x^2] of
+    each, summed in rank order and divided, as layers.batch_norm's pmean),
+    the loss the mean of the blocks' BCE (as the averaged gradients and the
+    logged pmean)."""
+    from pathtracker_torch.models import tsm_resnet
+    from pathtracker_torch.train import steps
+
+    bce = steps.bce_with_logits
+
+    def batch_norm(x, scale, bias, eps: float = 1e-3):
+        dims = tuple(range(x.dim() - 1))
+        total = None
+        for block in x.chunk(ranks, dim=0):
+            xs = block.float()
+            part = torch.stack([xs.mean(dim=dims), xs.square().mean(dim=dims)])
+            total = part if total is None else total + part
+        mean, mean2 = (total / ranks).unbind()
+        inv = torch.rsqrt(mean2 - mean.square() + eps)
+        return ((x - mean.to(x.dtype)) * (inv.to(x.dtype) * scale.to(x.dtype))
+                + bias.to(x.dtype))
+
+    def loss(output, target):
+        total = None
+        for o, t in zip(output.chunk(ranks), target.chunk(ranks)):
+            part = bce(o, t)
+            total = part if total is None else total + part
+        return total / ranks
+
+    return _patched((tsm_resnet, "batch_norm", batch_norm), (steps, "bce_with_logits", loss))
+
+
+def _as_model_ranks(ranks: int):
+    """The witness of phase 13 (i2) dp x tp: one process computing the InT
+    step as a model group of ``ranks`` does, every conv and projection whose
+    output width ``ranks`` divides by blocks of output channels,
+    concatenated (parallel.mesh.model_split on one process)."""
+    from pathtracker_torch.ops import layers
+
+    def split(op, weight_dim, out_dim):
+        def parts(x, w, **kw):
+            cout = w.shape[weight_dim]
+            if cout % ranks or cout < ranks or kw.get("groups", 1) != 1:
+                return op(x, w, **kw)
+            ys = [op(x, wp, **kw) for wp in w.chunk(ranks, dim=weight_dim)]
+            return torch.cat(ys, dim=out_dim % ys[0].dim())
+        return parts
+
+    return _patched((layers, "model_split", split))
+
+
+def _as_space_ranks(ranks: int, side: int):
+    """The witness of phase 13 (i2) dp x sp: one process computing the InT
+    step as a space group of ``ranks`` does on clips of ``side`` rows: each
+    k x k conv by blocks of H with their halo rows (zeros past the image),
+    laid out as collectives.with_halo lays them; BN0/BN1's statistics from
+    each block's E[x], E[x^2], summed in rank order and divided as the
+    all-reduce and pmean do; the readout's pool the blocks' means, summed."""
+    from pathtracker_torch.models import common
+    from pathtracker_torch.ops import int_fused as F
+    from pathtracker_torch.ops import layers
+    from pathtracker_torch.parallel.collectives import with_halo
+
+    h = side // ranks
+
+    def halo(conv, kernel_h):
+        if kernel_h == 1:
+            return conv
+        above, below = (kernel_h - 1) // 2, kernel_h // 2
+
+        def parts(x, w, **kw):
+            outs = []
+            for r in range(ranks):
+                top = (x[:, :, r * h - above:r * h] if r > 0
+                       else x.new_zeros((*x.shape[:2], above, x.shape[3])))
+                bottom = (x[:, :, (r + 1) * h:(r + 1) * h + below] if r < ranks - 1
+                          else x.new_zeros((*x.shape[:2], below, x.shape[3])))
+                piece = with_halo(top.contiguous(), x[:, :, r * h:(r + 1) * h],
+                                  bottom.contiguous(), 2)
+                outs.append(conv(piece, w, **kw).narrow(2, above, h))
+            return torch.cat(outs, dim=2)
+        return parts
+
+    def stats(conv_out):
+        c = conv_out.shape[-1]
+        blocks = conv_out.view(-1, side, side, c).chunk(ranks, dim=1)
+        total = None
+        for block in blocks:
+            x = block.reshape(-1, c).float()
+            part = torch.stack([x.mean(dim=0), x.square().mean(dim=0)])
+            total = part if total is None else total + part
+        mean, mean2 = (total / ranks).unbind()
+        return mean, torch.rsqrt(mean2 - mean.square() + F.BN_EPS)
+
+    def pool(x):
+        total = None
+        for block in x.chunk(ranks, dim=1):
+            part = block.mean(dim=(1, 2))
+            total = part if total is None else total + part
+        return total / ranks
+
+    return _patched((layers, "space_split", halo), (F, "stats", stats),
+                    (common, "global_avg_pool", pool))
+
+
+def _update_account(got: dict, ref: dict, tol: dict) -> tuple[str, bool]:
+    """A ranks' SGD run against its reference (MP_RNTSM_TOL): step 1's loss
+    within ``tol["rtol"]`` and its update against the reference's,
+    normalised by the parameter's largest update entry, at most
+    ``tol["flips"]`` entries past ``tol["update"]`` and the mean gap of the
+    others within ``tol["mean"]``; each later step's loss within
+    ``tol["move"]`` of the move the reference's step makes, its update
+    printed."""
+    rows = []
+    for i in range(1, len(ref["weights"])):
+        worst, mean, flips = (0.0, ""), (0.0, ""), (0, "")
+        for k, w in ref["weights"][i].items():
+            d_ref = w - ref["weights"][i - 1][k]
+            d_got = got["weights"][i][k] - got["weights"][i - 1][k]
+            gap = (d_got - d_ref).abs() / d_ref.abs().max().clamp_min(1e-30)
+            tag = f"{k} ({d_ref.numel()} entries)"
+            rest = gap.flatten().sort().values[:max(gap.numel() - tol["flips"], 1)]
+            worst = max(worst, (gap.max().item(), tag))
+            mean = max(mean, (rest.mean().item(), tag))
+            flips = max(flips, (int((gap > tol["update"]).sum()), tag))
+        rows.append((worst, mean, flips))
+    (_, _), (mean1, _), (flips1, _) = rows[0]
+    gaps = [abs(a - c) for a, c in zip(got["losses"], ref["losses"])]
+    moves = [abs(b - a) for a, b in zip(ref["losses"], ref["losses"][1:])]
+    holds = (gaps[0] <= tol["rtol"] * abs(ref["losses"][0]) and flips1 <= tol["flips"]
+             and mean1 <= tol["mean"]
+             and all(g <= tol["move"] * m for g, m in zip(gaps[1:], moves)))
+    updates = "; ".join(
+        f"step {i + 1} largest gap {w[0]:.3g} (in {w[1]}), at most {f[0]} entries of a "
+        f"parameter past {tol['update']} (in {f[1]}), largest mean gap of the rest "
+        f"{m[0]:.3g} (in {m[1]})" for i, (w, m, f) in enumerate(rows))
+    return (f"losses {got['losses']} against {ref['losses']}: relative gaps "
+            f"{_relative(got, ref)} (step 1 held <= {tol['rtol']}; later steps' gaps "
+            f"{[f'{g:.3g}' for g in gaps[1:]]} held <= {tol['move']} x the step's move "
+            f"{[f'{m:.3g}' for m in moves]}); each step's update against the reference's, "
+            f"normalised by the parameter's largest: {updates} (step 1 held: <= "
+            f"{tol['flips']} entries past {tol['update']}, mean <= {tol['mean']})"), holds
+
+
+def model_parallel_phase(F, Co, kernel_rows: list[dict], correlation_rows: list[dict],
+                         card: str) -> None:
+    """Phase 13 (i): (i1) rntsm under FSDP and (i2) chainE under dp x tp and
+    dp x sp, two gloo ranks on the card against one process; (i3) the dry
+    run at 4 ranks; (i4) FSDP, TP and SP meshes of one over NCCL against no
+    group."""
+    import gc
+
+    from pathtracker_torch.data.pathtracker import render_batch
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    os.makedirs(BUILD, exist_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        batches = {"rntsm": render_batch(200, TSM_TRAIN_BATCH, TIMESTEPS,
+                                         n_distractors=DISTRACTORS, dot_size=DOT_SIZE),
+                   "int": render_batch(40, MP_INT_BATCH, TIMESTEPS,
+                                       n_distractors=DISTRACTORS, dot_size=DOT_SIZE)}
+        batches = {k: tuple(torch.from_numpy(a) for a in v) for k, v in batches.items()}
+        data = os.path.join(tmp, "batches.pt")
+        torch.save(batches, data)
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(MP_RANKS)]
+        logs = [os.path.join(tmp, f"rank{r}.log") for r in range(MP_RANKS)]
+        t0 = time.perf_counter()
+        procs = []
+        for r in range(MP_RANKS):
+            with open(logs[r], "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--model-parallel-rank",
+                     str(r), str(MP_RANKS), os.path.join(tmp, "store"), data, outs[r]],
+                    cwd=ROOT, stdout=f, stderr=subprocess.STDOUT))
+        deadline = time.time() + MP_TIMEOUT
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        ranks_s = time.perf_counter() - t0
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                with open(logs[r]) as f:
+                    fail(f"model parallel: rank {r} exited {p.returncode}:\n{f.read()[-4000:]}")
+        ranks = [torch.load(o) for o in outs]
+
+        # The ranks against each other: one loss, one set of whole weights.
+        for name in ("rntsm", "tp", "sp"):
+            for r, rank in enumerate(ranks):
+                run = rank[name]
+                if (run["losses"] != ranks[0][name]["losses"] or not run["empty"]
+                        or any(not torch.equal(v, ranks[0][name]["weights"][-1][k])
+                               for k, v in run["weights"][-1].items())):
+                    fail(f"model parallel: {name}: rank {r}'s losses or weights differ from "
+                         "rank 0's, or its module kept whole weights")
+
+        # (i1) rntsm under FSDP against one process on the global batch.
+        rntsm = ranks[0]["rntsm"]
+        wide = {k: s for k, s in rntsm["specs"].items()
+                if k.startswith("layer4.") and k.endswith(".weight") and "conv" in k}
+        full = rntsm["weights"][0]
+        halves = all("data" in s and rntsm["shards"][k] == tuple(
+            d // MP_RANKS if a == "data" else d for d, a in zip(full[k].shape, s))
+            for k, s in wide.items())
+        sharded = sum(full[k].numel() for k, s in rntsm["specs"].items() if "data" in s)
+        total = sum(v.numel() for v in full.values())
+        if not wide or not halves:
+            fail(f"model parallel: rntsm's layer-4 kernels are not split in halves over "
+                 f"'data': {[(k, wide[k], rntsm['shards'].get(k)) for k in list(wide)[:4]]}")
+        for r, rank in enumerate(ranks):
+            if rank["rntsm"]["corr_launches"] != [MP_RNTSM_STEPS] * 3:
+                fail(f"model parallel: rntsm rank {r} launched the correlation wrappers "
+                     f"{rank['rntsm']['corr_launches']}, expected {[MP_RNTSM_STEPS] * 3}")
+        # The correlation kernels against their plain versions at a rank's
+        # shape: its clips' frame pairs.
+        n = TSM_TRAIN_BATCH // MP_RANKS * (TIMESTEPS - 1)
+        errs = correlation_errors(Co, *correlation_inputs(Co, n, SIDE, SIDE, CORR_C, PATCH, 7),
+                                  PATCH, 1)
+        print(f"model parallel: gap (i1) correlation kernels at a rank's shape N={n} "
+              f"{SIDE}x{SIDE}x{CORR_C} patch {PATCH} against their plain versions: "
+              f"max_abs_err fwd {errs[0]:.3g} atol {CORR_ATOL_FWD}, bwd_f1 {errs[1]:.3g} "
+              f"atol {CORR_ATOL_BWD}, bwd_f2 {errs[2]:.3g} atol {CORR_ATOL_BWD}", flush=True)
+        with _deterministic_cudnn():
+            rclips, rlabels = (t.to(dev) for t in batches["rntsm"])
+            plain = _mp_steps(_rntsm_model(dev), "rntsm", F, Co, None, rclips, rlabels, 1,
+                              sgd=MP_RNTSM_LR)
+            gc.collect()
+            torch.cuda.empty_cache()
+            with _as_data_ranks(MP_RANKS):
+                ref = _mp_steps(_rntsm_model(dev), "rntsm", F, Co, None, rclips, rlabels,
+                                MP_RNTSM_STEPS, sgd=MP_RNTSM_LR)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rntsm_account, rntsm_holds = _update_account(rntsm, ref, MP_RNTSM_TOL)
+        print(f"model parallel: rntsm (ResNet-50 + MotionSqueeze, {total:,} parameters, "
+              f"T={TIMESTEPS}, f32, remat) under FSDP over {MP_RANKS} gloo ranks on the card, "
+              f"global batch {TSM_TRAIN_BATCH}, {MP_RNTSM_STEPS} SGD({MP_RNTSM_LR:g}) steps, "
+              f"cudnn.deterministic, against one process computing the global batch as "
+              f"the ranks do: {rntsm_account}; one process on the global batch: step-1 "
+              f"relative loss gap {_relative(rntsm, plain)} (printed); {len(wide)} layer-4 "
+              f"kernels split in halves over 'data' "
+              f"({sharded:,} of {total:,} parameter entries sharded: between steps each "
+              f"rank stores {(total - sharded + sharded / MP_RANKS) / total:.3f} of the "
+              f"weights, by their shapes; during a step it holds the whole weights and "
+              f"their whole gradients); peak memory allocated over the steps "
+              f"{[round(r['rntsm']['peak_gib'], 2) for r in ranks]} GiB a rank (batch "
+              f"{TSM_TRAIN_BATCH // MP_RANKS}), the witness {ref['peak_gib']:.2f} GiB, one "
+              f"process {plain['peak_gib']:.2f} GiB (batch {TSM_TRAIN_BATCH}); correlation "
+              f"wrapper launches a rank "
+              f"{[r['rntsm']['corr_launches'] for r in ranks]} (forward, bwd_f1, bwd_f2); "
+              f"step ms a rank {[f'{m:.1f}' for m in rntsm['ms']]}, the witness "
+              f"{[f'{m:.1f}' for m in ref['ms']]}, one process "
+              f"{[f'{m:.1f}' for m in plain['ms']]} [{card}]", flush=True)
+        print(f"model parallel: gap (i1) loss {_relative(rntsm, ref)} rtol "
+              f"{MP_RNTSM_TOL['rtol']}; updates by test_torch_tsm_steps.py's rule "
+              f"({MP_RNTSM_TOL['update']}, {MP_RNTSM_TOL['flips']} entries, mean "
+              f"{MP_RNTSM_TOL['mean']})", flush=True)
+        del ref, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (i2) chainE under dp x tp and dp x sp against their witnesses; the
+        # K1-K3 kernels against their plain versions at the ranks' rows: a
+        # model rank's (and the meshes of one's) whole batch, a space rank's
+        # half of H.
+        loop_shape_kernel_check(F, MP_INT_BATCH, "model parallel: gap (i2) dp x tp")
+        loop_shape_kernel_check(F, MP_INT_BATCH // MP_RANKS, "model parallel: gap (i2) dp x sp")
+        clips, labels = (t.to(dev) for t in batches["int"])
+        want = [2 * TIMESTEPS] * 3 + [TIMESTEPS] * 3
+        accounts, holds = {}, []
+        with _deterministic_cudnn():
+            plain = _mp_steps(_chaine(True).train(), "InT", F, Co, None, clips, labels, 1)
+            for name, witness in (("tp", _as_model_ranks(MP_RANKS)),
+                                  ("sp", _as_space_ranks(MP_RANKS, SIDE))):
+                for r, rank in enumerate(ranks):
+                    if rank[name]["launches"] != want:
+                        fail(f"model parallel: {name}: rank {r} launched the K1-K3 wrappers "
+                             f"{rank[name]['launches']}, expected {want}")
+                with witness:
+                    ref = _mp_steps(_chaine(True).train(), "InT", F, Co, None, clips, labels, 1)
+                account, ok = _parallel_account("bf16", *(
+                    {**run, "weights": run["weights"][1:]} for run in (ranks[0][name], ref)))
+                accounts[name] = (account, _relative(ranks[0][name], plain),
+                                  ranks[0][name]["ms"], ref["ms"])
+                holds.append(ok)
+                print(f"model parallel: gap (i2) {name} loss {_relative(ranks[0][name], ref)} "
+                      f"rtol {PARALLEL_PATHS['bf16']['rtol']}; weights by the Adam rule atol "
+                      f"{PARALLEL_PATHS['bf16']['atol']}", flush=True)
+        tp_specs = ranks[0]["tp"]["specs"]
+        split = sorted(k for k, s in tp_specs.items() if "model" in s)
+        for name, title in (("tp", "dp x tp (1 x 2: output channels over 'model')"),
+                            ("sp", "dp x sp (1 x 2: rows of H over 'space')")):
+            account, gap, ms, ref_ms = accounts[name]
+            print(f"model parallel: InT {title} from chainE, --bf16 (the K1-K3 kernels), "
+                  f"T={TIMESTEPS}, global batch {MP_INT_BATCH}, one Adam step, "
+                  f"cudnn.deterministic, against one process computing the batch as the "
+                  f"ranks do: {account}; one process on the batch: relative loss gap {gap} "
+                  f"(printed); K1-K3 wrapper launches a rank "
+                  f"{[r[name]['launches'] for r in ranks]}; step ms a rank "
+                  f"{[f'{m:.1f}' for m in ms]}, the witness's {[f'{m:.1f}' for m in ref_ms]}, "
+                  f"one process's {[f'{m:.1f}' for m in plain['ms']]} [{card}]", flush=True)
+        print(f"model parallel: dp x tp split {len(split)} of {len(tp_specs)} parameters "
+              f"over 'model' ({', '.join(split[:6])}, ...)", flush=True)
+        if not (rntsm_holds and all(holds)):
+            fail(f"model parallel: against the references: rntsm "
+                 f"{'holds' if rntsm_holds else 'fails'}, dp x tp "
+                 f"{'holds' if holds[0] else 'fails'}, dp x sp "
+                 f"{'holds' if holds[1] else 'fails'}")
+        del plain, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (i3) the dry run of every mode at 4 ranks on the card (gloo).
+        t0 = time.perf_counter()
+        dry = subprocess.run([sys.executable, "-m", "pathtracker_torch.parallel.dryrun",
+                              "--ranks", str(MP_DRYRUN_RANKS)], cwd=ROOT, capture_output=True,
+                             text=True, timeout=MP_TIMEOUT)
+        dry_s = time.perf_counter() - t0
+        lines = [ln for ln in dry.stdout.splitlines() if ln.startswith("dryrun(")]
+        missing = [m for m in MP_DRYRUN_MODES if not any(m in ln for ln in lines)]
+        if dry.returncode != 0 or missing:
+            fail(f"model parallel: the dry run exited {dry.returncode}, missing {missing}:\n"
+                 f"{dry.stdout[-2000:]}\n{dry.stderr[-2000:]}")
+        for ln in lines:
+            print(f"model parallel: {ln}", flush=True)
+        print(f"model parallel: python -m pathtracker_torch.parallel.dryrun --ranks "
+              f"{MP_DRYRUN_RANKS} on the card (gloo): exit 0 in {dry_s:.1f} s [{card}]",
+              flush=True)
+
+        # (i4) meshes of one over NCCL against no group.
+        nccl = model_parallel_nccl(F, Co, clips, labels, os.path.join(tmp, "nccl.store"))
+    for row, count in zip(kernel_rows, [sum(x) for x in zip(*(
+            [r[name]["launches"] for r in ranks for name in ("tp", "sp")] + [nccl]))]):
+        row["launches_parallel"] += count
+        row["launches"] += count
+    for row, count in zip(correlation_rows,
+                          [sum(x) for x in zip(*(r["rntsm"]["corr_launches"] for r in ranks))]):
+        row["launches_parallel"] += count
+        row["launches"] += count
+    print(f"model parallel: phase 13 (i) {time.perf_counter() - t_phase:.1f} s (the two "
+          f"ranks' processes {ranks_s:.1f} s) [{card}]", flush=True)
+
+
+def model_parallel_nccl(F, Co, clips, labels, store: str) -> list[int]:
+    """Phase 13 (i4): one step of chainE's InT under FSDP, TP and SP meshes
+    of one rank over NCCL, each bit-equal to the step with no group; the
+    K1-K3 launches of the meshes' steps."""
+    from pathtracker_torch.parallel import distributed
+    from pathtracker_torch.parallel import mesh as M
+
+    layouts = {"fsdp": lambda m: M.fsdp_shard_params(M.make_mesh(), m),
+               "tp": lambda m: M.shard_params_2d(M.make_mesh_2d(1, 1), m),
+               "sp": lambda m: M.spatial_layout(M.make_mesh_2d(1, 1, ("data", "space")), m)}
+    runs = {}
+    distributed.initialize(f"file://{store}", 1, 0)
+    try:
+        with _deterministic_cudnn():
+            runs["none"] = _mp_steps(_chaine(True).train(), "InT", F, Co, None, clips, labels, 1)
+            for name, layout_of in layouts.items():
+                model = _chaine(True).train()
+                runs[name] = _mp_steps(model, "InT", F, Co, layout_of(model), clips, labels, 1)
+                del model
+    finally:
+        distributed.shutdown()
+    none = runs["none"]
+    for name in layouts:
+        run = runs[name]
+        same = (run["losses"] == none["losses"] and run["launches"] == none["launches"]
+                and all(torch.equal(v, none["weights"][0][k])
+                        for k, v in run["weights"][0].items()))
+        if not same:
+            fail(f"model parallel: NCCL {name} mesh of one differs from no group: losses "
+                 f"{run['losses']} / {none['losses']}, launches {run['launches']} / "
+                 f"{none['launches']}")
+    print(f"model parallel: FSDP, TP and SP meshes of one over NCCL, chainE --bf16, batch "
+          f"{MP_INT_BATCH}, one step each under cudnn.deterministic: losses and weights "
+          f"bit-equal to the step with no group; K1-K3 wrapper launches a step "
+          f"{none['launches']}", flush=True)
+    return [sum(x) for x in zip(*(runs[name]["launches"] for name in layouts))]
+
+
 # ------------------------- phases 14-16: this slice -------------------------
 
 def _recorded_launches(F, record):
@@ -3377,6 +3946,8 @@ def print_resources(native, names) -> dict:
 def main() -> int:
     if sys.argv[1:2] == ["--parallel-rank"]:  # one rank of phase 13 (h1)
         return parallel_rank(*sys.argv[2:])
+    if sys.argv[1:2] == ["--model-parallel-rank"]:  # one rank of phase 13 (i1), (i2)
+        return model_parallel_rank(*sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
@@ -3422,6 +3993,8 @@ def main() -> int:
     for row in correlation_rows:
         row["launches_loop"] = row["launches_parallel"] = 0
     resident_phase(serve, F, Co, kernel_rows, correlation_rows, loop_ms)
+    torch.cuda.empty_cache()
+    model_parallel_phase(F, Co, kernel_rows, correlation_rows, card)
     torch.cuda.empty_cache()
     viz_phase(F, kernel_rows)
     torch.cuda.empty_cache()

@@ -76,14 +76,15 @@ def stats(conv_out):
     """Batch-stat f32 mean and rstd per channel of a [R, C] conv output,
     from E[x²]−E[x]² (int_fused.py:501-508). Plain PyTorch, outside the
     kernels, as the JAX package leaves it to XLA. Under a data group
-    (parallel/mesh.py) E[x] and E[x²] are the global batch's: one [2, C]
+    (parallel/mesh.py) E[x] and E[x²] are those of the rows of every rank
+    of the statistics' group: one [2, C]
     all-reduce, differentiable, so K2/K3 backward's gradients for the
     statistics reach every rank's rows through autograd."""
     x = conv_out.float()
     mean = x.mean(dim=0)
     mean2 = x.square().mean(dim=0)
-    if active_mesh() is not None:
-        mean, mean2 = pmean(torch.stack([mean, mean2])).unbind()
+    if active_mesh("stats") is not None:
+        mean, mean2 = pmean(torch.stack([mean, mean2]), over="stats").unbind()
     var = mean2 - mean.square()
     return mean, torch.rsqrt(var + BN_EPS)
 

@@ -18,7 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from pathtracker_torch.parallel.mesh import active_mesh, pmean
+from pathtracker_torch.parallel.mesh import (active_mesh, model_split, pmean, psum,
+                                             space_split)
 
 
 def softplus(x):
@@ -45,7 +46,10 @@ def dense(x, kernel, bias=None, mxu_dtype=None, matmul=torch.matmul):
     """[..., Cin] @ [Cin, Cout] (+ bias). With ``mxu_dtype`` and an f32
     input, the mixed policy: the product takes one bf16 rounding and comes
     back as f32. ``matmul`` computes the product of the two operands as
-    they are after the casts (the InT cell's remat passes its own)."""
+    they are after the casts (the InT cell's remat passes its own). Under a
+    model group (tensor parallelism) each rank computes its block of the
+    output channels and the blocks are gathered (``mesh.model_split``)."""
+    matmul = model_split(matmul, -1, -1)
     if mxu_dtype is not None and x.dtype == torch.float32:
         y = _mixed_matmul(x, kernel, mxu_dtype, matmul).float()
     else:
@@ -64,7 +68,11 @@ def conv2d(x, weight, bias=None, mxu_dtype=None, keep_mxu_dtype: bool = False,
     A bf16 input, or ``mxu_dtype`` with an f32 input, takes the mixed path
     and yields bf16; ``keep_mxu_dtype=False`` upcasts an f32 input's result
     back to f32. ``conv`` is called as ``F.conv2d`` on the operands after
-    the casts (the InT cell's remat passes its own)."""
+    the casts (the InT cell's remat passes its own). Under a model group it
+    computes this rank's output channels and gathers them; under a space
+    group (spatial parallelism, ``x`` this rank's rows of H) it reads the
+    neighbours' halo rows (``mesh.space_split``)."""
+    conv = space_split(model_split(conv, 0, 1), weight.shape[-2])
     x_nchw = x.permute(0, 3, 1, 2)
     mixed = mxu_dtype is not None and x.dtype == torch.float32
     if mixed or x.dtype == torch.bfloat16:
@@ -131,8 +139,8 @@ def batch_norm(x, scale, bias, eps: float = 1e-3):
     xs = x.float()
     mean = xs.mean(dim=dims)
     mean2 = xs.square().mean(dim=dims)
-    if active_mesh() is not None:
-        mean, mean2 = pmean(torch.stack([mean, mean2])).unbind()
+    if active_mesh("stats") is not None:
+        mean, mean2 = pmean(torch.stack([mean, mean2]), over="stats").unbind()
     inv = torch.rsqrt(mean2 - mean.square() + eps)
     return ((x - mean.to(x.dtype)) * (inv.to(x.dtype) * scale.to(x.dtype))
             + bias.to(x.dtype))
@@ -174,5 +182,8 @@ def max_pool2d(x, kernel: int = 3):
 
 
 def global_avg_pool(x):
-    """NHWC -> [N, C] spatial mean."""
-    return x.mean(dim=(1, 2))
+    """NHWC -> [N, C] spatial mean; under a space group (``x`` this rank's
+    rows of H) the mean over every rank's rows."""
+    y = x.mean(dim=(1, 2))
+    space = active_mesh("space")
+    return y if space is None else psum(y, over="space") / space.size

@@ -412,20 +412,30 @@ def train_stats(loss, total, jv, raw_labels, output):
 
 def make_train_step(model, model_name: str, optimizer: Optimizer,
                     penalty: bool = False, prepare_kwargs: dict | None = None,
-                    seed: int = 0):
+                    seed: int = 0, layout=None):
     """Build the step: ``train_step(raw_imgs, raw_labels) -> stats``. It
     consumes the *raw uint8* batch (tensors or arrays; normalization and
     layout run on the model's device), updates the model's parameters in
     place and returns the TRAIN_KEYS scalars from one packed host fetch.
     ``optimizer`` is bound to the model's parameters here unless it already
     is. ``seed`` seeds the generator of the models' stochastic layers; the
-    recurrent family has none."""
+    recurrent family has none.
+
+    ``layout`` (a ``parallel.mesh.Sharded`` of ``model``) trains the
+    parameters laid out over a mesh: the optimizer is bound to this rank's
+    blocks, and each step takes this rank's block of the global batch
+    (``layout.local_batch``) and runs under the layout's groups, with the
+    whole weights gathered for it and each block's gradient reduced from
+    them. The step
+    takes the gradients of the gathered weights with ``autograd.grad`` as
+    any step does: they are plain tensors, not a framework's sharded ones."""
     prep = dict(prepare_kwargs or {})
     params = [p for p in model.parameters() if p.requires_grad]
     device = params[0].device
     if optimizer.params is None:
-        optimizer.init(params)
+        optimizer.init(params if layout is None else layout.shards)
     generator = torch.Generator(device=device).manual_seed(seed)
+    reduce = average_gradients if layout is None else layout.reduce
 
     def train_step(raw_imgs, raw_labels):
         raw_imgs = torch.as_tensor(raw_imgs).to(device)
@@ -436,14 +446,24 @@ def make_train_step(model, model_name: str, optimizer: Optimizer,
         loss = bce_with_logits(output, target)
         jv = jv_penalty.mean()
         total = loss + jv * 1e1 if penalty else loss
-        optimizer.step(average_gradients(
-            torch.autograd.grad(total, params, allow_unused=True)))
+        optimizer.step(reduce(torch.autograd.grad(total, params, allow_unused=True)))
         with torch.no_grad():
             packed = train_stats(loss, total, jv, raw_labels, output)
         host = packed.cpu().numpy()  # single host fetch / sync point
         return dict(zip(TRAIN_KEYS, host))
 
-    return train_step
+    if layout is None:
+        return train_step
+
+    def sharded_step(raw_imgs, raw_labels):
+        with layout.groups():
+            layout.gather()
+            try:
+                return train_step(raw_imgs, raw_labels)
+            finally:
+                layout.release()
+
+    return sharded_step
 
 
 def make_eval_step(model, model_name: str, prepare_kwargs: dict | None = None):

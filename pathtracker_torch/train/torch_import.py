@@ -71,6 +71,12 @@ and ``_kernel`` as ``.weight``, linears [in, out] <-> [out, in] and the
 readout's conv HWIO <-> OIHW; ``favor_proj``, ``pos_emb`` and
 ``cls_token`` keep their layout.
 
+The parallel modes' own parameters (parallel/moe.py, parallel/pipeline.py)
+map too: the MoE bank ({router_w, w1, b1, w2, b2}) keeps JAX's names and
+layouts, and a pipeline's stacked stages ({k, b} with a leading stage axis)
+take the conv kernels' stacked HWIO <-> OIHW. A sharded run's parameters
+come back to JAX names and layouts as ``to_jax_params(gather_params(s))``.
+
 ``state_dict_from_jax`` picks the mapping by model name, or by a layout
 name of ``layout_of``; ``to_jax_params`` takes any family's ``state_dict``
 and tells the families apart by their keys (``layout_of``).
@@ -196,6 +202,9 @@ def to_jax_params(state_dict: dict) -> dict:
     layout = layout_of(state_dict)
     if layout == "tsm":
         return import_tsm_resnet_state_dict(state_dict)
+    if layout in ("moe", "pipeline"):
+        return {k: _stage_layout(v.detach().to("cpu", torch.float32).numpy(), k, layout, False)
+                for k, v in state_dict.items()}
     if layout in _RULE_LAYOUTS:
         return _to_jax_by_rules(state_dict, _rules(layout, state_dict))
     return dict(_jax_entry(key, value) for key, value in state_dict.items())
@@ -308,6 +317,14 @@ def jax_leaves(tree: dict, prefix: str = ""):
             yield path, tree[key]
 
 
+def _stage_layout(arr: np.ndarray, key: str, layout: str, to_port: bool) -> np.ndarray:
+    """A pipeline's stacked conv kernel [S, kh, kw, I, O] <-> [S, O, I, kh,
+    kw]; every other leaf of the parallel modes as it is."""
+    if layout == "pipeline" and key == "k":
+        arr = arr.transpose(0, 4, 3, 1, 2) if to_port else arr.transpose(0, 3, 4, 2, 1)
+    return np.ascontiguousarray(arr)
+
+
 # model name -> its parameters' layout; every other name is "flat"
 LAYOUTS = {"rntsm": "tsm", **dict.fromkeys(RECURRENT_ZOO, "zoo"),
            **dict.fromkeys(VIDEO_RESNETS, "video_resnet"),
@@ -317,11 +334,20 @@ LAYOUTS = {"rntsm": "tsm", **dict.fromkeys(RECURRENT_ZOO, "zoo"),
 _RULE_LAYOUTS = ("video_resnet", "zoo", "slowfast", "transformer", "performer", "lambda")
 
 
+_MOE_KEYS = frozenset({"router_w", "w1", "b1", "w2", "b2"})
+_PIPELINE_KEYS = frozenset({"k", "b"})
+
+
 def layout_of(state_dict) -> str:
     """The layout of a port ``state_dict`` (or of tensors keyed like one),
-    from its keys: "tsm", one of ``_RULE_LAYOUTS`` or "flat"."""
+    from its keys: "tsm", "moe", "pipeline", one of ``_RULE_LAYOUTS`` or
+    "flat"."""
     if looks_like_tsm_resnet_state_dict(state_dict):
         return "tsm"
+    if set(state_dict) == _MOE_KEYS:
+        return "moe"
+    if set(state_dict) == _PIPELINE_KEYS:
+        return "pipeline"
     for layout in _RULE_LAYOUTS:
         rules = _rules(layout, state_dict)
         if state_dict and all(_match(rules, key, 1) for key in state_dict):
@@ -335,6 +361,9 @@ def state_dict_from_jax(model: str, params: dict) -> dict:
     layout = LAYOUTS.get(model, model)
     if layout == "tsm":
         return export_tsm_resnet_state_dict(params)
+    if layout in ("moe", "pipeline"):
+        return {k: torch.tensor(_stage_layout(np.asarray(v, np.float32), k, layout, True))
+                for k, v in params.items()}
     if layout in _RULE_LAYOUTS:
         return _from_jax_by_rules(params, _rules(layout, params))
     return export_reference_state_dict(params)

@@ -197,3 +197,70 @@ def test_collective_activity_and_weight_gaps_read_what_they_say(tmp_path):
     rms["w"][0, 2] = 1e-3
     worst, share = chip_smoke._adam_rule(got, want, rms, 5e-4)
     assert abs(worst - 2e-3) < 1e-9 and abs(share - 1 / 19) < 1e-7
+
+
+def test_model_parallel_phase_is_wired_before_the_kernels_line_and_its_ranks():
+    """Phase 13 (i) runs after the resident phase and before the kernels
+    line; ``chip_smoke.py --model-parallel-rank`` is one of its ranks,
+    dispatched before the card check; it drives the dry run at 4 ranks and
+    NCCL meshes of one, adds its launches to ``launches_parallel`` of the
+    K1-K3 and the correlation rows, and imports nothing of JAX."""
+    import inspect
+
+    main = inspect.getsource(chip_smoke.main)
+    assert main.index('"--model-parallel-rank"') < main.index("torch.cuda.is_available()")
+    assert main.index("resident_phase(") < main.index("model_parallel_phase(") \
+        < main.index('{"kernels"')
+    assert "(i) model-parallel training" in chip_smoke.__doc__
+    source = "".join(inspect.getsource(f) for f in (
+        chip_smoke.model_parallel_phase, chip_smoke.model_parallel_rank,
+        chip_smoke.model_parallel_nccl, chip_smoke._mp_steps, chip_smoke._as_data_ranks,
+        chip_smoke._as_model_ranks, chip_smoke._as_space_ranks, chip_smoke._update_account))
+    assert not any(word in source for word in ("jax", "flax", "optax", "pathtracker_tpu"))
+    phase = inspect.getsource(chip_smoke.model_parallel_phase)
+    assert "pathtracker_torch.parallel.dryrun" in phase and "correlation_rows" in phase
+    assert phase.count('row["launches_parallel"] += count') == 2
+    assert set(chip_smoke.MP_DRYRUN_MODES) >= {"fsdp step ok", "pp x dp pipeline step ok"}
+
+
+def test_update_account_holds_step_one_tightly_and_later_steps_by_their_move():
+    """The rntsm rule of phase 13 (i1) on hand-made runs: an update gap past
+    the tolerance in three entries fails step 1 and passes at step 2; a
+    step-2 loss off by a twentieth of its move fails."""
+    import torch
+
+    def run(deltas, losses):
+        w = [{"p": torch.zeros(100)}]
+        for d in deltas:
+            w.append({"p": w[-1]["p"] + d})
+        return {"weights": w, "losses": losses}
+
+    base = torch.linspace(1, 2, 100)
+    bent = base.clone()
+    bent[:3] += 0.5  # three entries past 0.1 of the largest update (2)
+    tol = chip_smoke.MP_RNTSM_TOL
+    ref = run([base, base], [1.0, 0.9])
+    assert chip_smoke._update_account(run([base, bent], [1.0, 0.9]), ref, tol)[1]
+    assert not chip_smoke._update_account(run([bent, base], [1.0, 0.9]), ref, tol)[1]
+    assert not chip_smoke._update_account(run([base, base], [1.0, 0.9 + 0.0051]), ref, tol)[1]
+    assert chip_smoke._update_account(run([base, base], [1.0, 0.9 + 0.0049]), ref, tol)[1]
+    assert not chip_smoke._update_account(run([base, base], [1.0 + 2e-5, 0.9]), ref, tol)[1]
+
+
+def test_model_parallel_phase_holds_the_kernels_at_the_ranks_shapes():
+    """Phase 13 (i) holds K1-K3 against their plain versions at the rows a
+    rank of its dp x tp mesh (the whole batch) and of its dp x sp mesh (half
+    of H) gives them, and the correlation kernels at a FSDP rank's frame
+    pairs, beside the ranks' runs that launch them."""
+    import inspect
+
+    phase = inspect.getsource(chip_smoke.model_parallel_phase)
+    assert "loop_shape_kernel_check(F, MP_INT_BATCH," in phase
+    assert "loop_shape_kernel_check(F, MP_INT_BATCH // MP_RANKS," in phase
+    assert "n = TSM_TRAIN_BATCH // MP_RANKS * (TIMESTEPS - 1)" in phase
+    assert "correlation_errors(Co, *correlation_inputs(Co, n, SIDE, SIDE, CORR_C, PATCH" in phase
+    side, ranks = chip_smoke.SIDE, chip_smoke.MP_RANKS
+    # A space rank's rows of H are the rows of half the clips at full H.
+    assert chip_smoke.MP_INT_BATCH * (side // ranks) * side \
+        == chip_smoke.MP_INT_BATCH // ranks * side * side
+    assert phase.index("loop_shape_kernel_check(") < phase.index("_as_model_ranks(")

@@ -937,3 +937,120 @@ def test_cuda_nccl_world_of_one_window_matches_eager(cuda, tmp_path, monkeypatch
         _assert_window_matches_eager(opts, models, 1e-3, len(losses))
     finally:
         distributed.shutdown()
+
+
+# ----------------------- model parallel (parallel/) --------------------------
+
+def _model_parallel_ranks(tmp_path, world, cases, backend=None):
+    """``world`` ranks of tests/torch_model_parallel_worker.py on the card
+    (gloo: NCCL takes one card a rank; ``backend`` None: NCCL, for a world
+    of one) on ``cases``; their results."""
+    import subprocess
+
+    torch.save(cases, tmp_path / "in.pt")
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "torch_model_parallel_worker.py")
+    procs, logs = [], []
+    for rank in range(world):
+        logs.append(open(tmp_path / f"rank{rank}.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, worker, str(rank), str(world), str(tmp_path / "store"),
+             str(tmp_path / "in.pt"), str(tmp_path / f"out{rank}.pt"), "cuda",
+             *([backend] if backend else [])],
+            stdout=logs[-1], stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=300)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    for rank, p in enumerate(procs):
+        assert p.returncode == 0, (tmp_path / f"rank{rank}.log").read_text()[-4000:]
+    return [torch.load(tmp_path / f"out{rank}.pt") for rank in range(world)]
+
+
+@pytest.mark.gpu
+def test_cuda_gloo_collectives_of_the_model_parallel_modes(cuda, tmp_path):
+    """parallel.collectives over two gloo ranks on the card's tensors, f32
+    and bf16 (gloo's send and receive refuse the card's tensors: a shift
+    all-gathers there): exact."""
+    got = _model_parallel_ranks(tmp_path, 2, {"c": dict(kind="collectives")}, "gloo")
+    for tag, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        xs = [(torch.arange(24, dtype=torch.float32).view(4, 6) + 100 * r).to(dtype)
+              for r in range(2)]
+        total = xs[0] + xs[1]
+        for r, out in enumerate(got):
+            out = out["c"]
+            assert torch.equal(out[f"gather0-{tag}"], torch.cat(xs, 0))
+            assert torch.equal(out[f"gather1-{tag}"], torch.cat(xs, 1))
+            assert torch.equal(out[f"scatter0-{tag}"], total.chunk(2, 0)[r])
+            assert torch.equal(out[f"scatter1-{tag}"], total.chunk(2, 1)[r])
+            assert torch.equal(out[f"shift+1-{tag}"], xs[1 - r])
+            assert torch.equal(out[f"shift-1-{tag}"], xs[1 - r])
+            assert torch.equal(out[f"broadcast-{tag}"], xs[1])
+            # 2 rows above and 1 below each rank's 4 rows (zeros past the ends)
+            whole = torch.cat([torch.zeros(2, 6, dtype=dtype), *xs, torch.zeros(1, 6, dtype=dtype)])
+            assert torch.equal(out[f"halo-{tag}"][0, 0], whole[4 * r:4 * r + 7])
+        # the halo's gradient: each row's cotangents from every rank that read it
+        ws = [torch.linspace(-1, 1, 42).view(7, 6).to(dtype) for _ in range(2)]
+        whole = torch.zeros(11, 6, dtype=torch.float32)
+        for r in range(2):
+            whole[4 * r:4 * r + 7] += ws[r].float()
+        for r, out in enumerate(got):
+            want = whole[2 + 4 * r:6 + 4 * r].to(dtype)
+            assert torch.allclose(out["c"][f"halo_grad-{tag}"][0, 0].float(), want.float(),
+                                  atol=1e-2 if dtype == torch.bfloat16 else 0)
+
+
+@pytest.mark.gpu
+def test_cuda_fsdp_tp_sp_meshes_of_one_over_nccl_are_bit_equal_to_no_group(cuda, tmp_path):
+    """One step of the fused bf16 InT (the K1-K3 kernels) under FSDP, TP and
+    SP meshes of one rank over NCCL, against the same step with no group:
+    bit-equal losses and weights."""
+    import numpy as np
+
+    model = dict(dimensions=C, timesteps=4, kernel_size=3, dtype="bfloat16")
+    state = {k: v.cpu() for k, v in InT(seed=0, device=cuda, **model).state_dict().items()}
+    rng = np.random.default_rng(0)
+    case = dict(kind="world1", model="InT", kwargs=model, state=state, lr=1e-3,
+                clips=torch.from_numpy(rng.integers(0, 256, (4, 4, 32, 32, 3), dtype=np.uint8)),
+                labels=torch.from_numpy(rng.integers(0, 2, (4,), dtype=np.uint8)))
+    got = _model_parallel_ranks(tmp_path, 1, {"w": case})[0]["w"]
+    for mode in ("fsdp", "tp", "sp"):
+        assert torch.equal(got[mode]["stats"], got["none"]["stats"]), mode
+        for k, v in got["none"]["state"].items():
+            assert torch.equal(got[mode]["state"][k], v), (mode, k)
+        assert (got[mode]["launches"] == torch.tensor([8, 8, 8, 4, 4, 4])).all(), mode
+
+
+@pytest.mark.gpu
+def test_cuda_k1_k3_run_on_a_space_ranks_rows(cuda, tmp_path, monkeypatch):
+    """dp x sp as 1 x 2 on the card: each gloo rank runs the six K1-K3
+    kernels on its rows of H (16 of 32), and the step's loss is bit-equal to
+    one process computing the batch as the ranks do
+    (``chip_smoke._as_space_ranks``) under cudnn.deterministic."""
+    import numpy as np
+
+    from pathtracker_torch.train.steps import make_optimizer, make_train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    model = dict(dimensions=C, timesteps=4, kernel_size=3, dtype="bfloat16")
+    state = {k: v.cpu() for k, v in InT(seed=0, device=cuda, **model).state_dict().items()}
+    rng = np.random.default_rng(0)
+    clips = torch.from_numpy(rng.integers(0, 256, (4, 4, 32, 32, 3), dtype=np.uint8))
+    labels = torch.from_numpy(rng.integers(0, 2, (4,), dtype=np.uint8))
+    ranks = _model_parallel_ranks(tmp_path, 2, {"sp": dict(
+        kind="step", model="InT", kwargs=model, state=state, lr=1e-3, mode="sp", mesh=(1, 2),
+        clips=clips, labels=labels)}, "gloo")
+    for r in ranks:
+        assert (r["sp"]["launches"] == torch.tensor([8, 8, 8, 4, 4, 4])).all()
+        assert torch.equal(r["sp"]["stats"], ranks[0]["sp"]["stats"])
+    one = InT(device=cuda, **model)
+    one.load_state_dict(state)
+    with chip_smoke._as_space_ranks(2, 32):
+        want = make_train_step(one, "InT", make_optimizer(1e-3))(clips.to(cuda), labels.to(cuda))
+    assert float(ranks[0]["sp"]["stats"][0]) == float(want["loss"])

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive pathtracker_torch's serving, training, eval, training-loop,
 resident-window, attribution, export and RBP paths, the recurrent zoo, the
-video ResNets, SlowFast and the transformer baselines on one CUDA card (an
-H100) and hold every CUDA kernel on those paths against its plain PyTorch
-version.
+video ResNets, SlowFast, the transformer baselines and the canonical
+warm-start chain on one CUDA card (an H100) and hold every CUDA kernel on
+those paths against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -174,7 +174,13 @@ Phases, printed in order; any failure exits non-zero before the last line:
      symbolic batch, its .pt2 written and loaded, run at batch 128 and 40:
      bit-equal to make_inference_fn, T launches of each forward kernel
      inside the program's call; export seconds, graph nodes, bytes, p50 at
-     batch 128 beside the live model's and phase 4's;
+     batch 128 beside the live model's and phase 4's; --platforms: that
+     program (saved for cpu,cuda, the default) loaded with device="cpu" and
+     run on EXPORT_CPU_BATCH of the clips there without a launch, its
+     scores held to the card's by phase 4's fused-vs-eager rule; the same
+     program saved for cuda alone refused on the CPU; chainE at
+     T=EXPORT_CPU_T exported on the CPU, served on the card (T launches of
+     each K1-K3 forward kernel), held to the live model there by that rule;
  16. InT under --algo rbp (batch 180, T=64, --bf16, chainE): 3 steps on the
      eager cell, no K1-K3 launch, the Neumann terms of each step, step
      times and peak memory beside phase 12's BPTT step; hgru, hgru_v2,
@@ -210,7 +216,24 @@ Phases, printed in order; any failure exits non-zero before the last line:
      pathtracker_torch.train with --model slowfast and performer for one
      capped epoch and the eval CLI on the rolling checkpoint; no csrc
      kernel launched; the phase's seconds;
- 19. one JSON line naming every kernel with its numbers (launches summed over
+ 19. the canonical warm-start chain (scripts/torch_reproduce_canonical.py)
+     at full width, depth cut by CHAIN_DEPTH: its stages' roots and the
+     matrix's other configs rendered in parallel processes behind phases
+     17 and 18; the driver's command (stages A, B, C at T=8, 32, 64 on
+     1,536 + 128 clips, batch
+     128, --bf16 --device-data --fused-steps 12, each a train CLI process
+     on the card reporting its kernel launches through
+     PATHTRACKER_LAUNCHES): the JAX package's artifacts in each run folder,
+     each hp_dict.npz naming the previous stage's best checkpoint, each
+     stage's K1-K3 launches exact (a warm-up and a capture of its 12-step
+     window, validation's forward), its stage seconds, then the report's
+     held-out results; the chain again in this process, without the
+     report: A and B skipped untouched, C resumed without --ckpt and
+     nothing left to train;
+     scripts/torch_eval_matrix.py over C's best checkpoint in this process
+     (8 configs, T=64 first, CHAIN_MATRIX_CLIPS test clips each, the
+     forward kernels' launches exact); the phase's seconds;
+ 20. one JSON line naming every kernel with its numbers (launches summed over
      the main paths, with each path's count beside).
 The last line is {"ok": true, "device": {...}}. It needs a CUDA card and
 the repository beside it; without either it exits non-zero and prints no
@@ -224,6 +247,7 @@ import glob
 import json
 import os
 import re
+import shlex
 import signal
 import statistics
 import subprocess
@@ -1530,8 +1554,6 @@ class _Tee:
 
 def _launcher_argv() -> list[str]:
     """train_InT.sh's flags, as its command line passes them."""
-    import shlex
-
     with open(os.path.join(ROOT, "train_InT.sh")) as f:
         words = shlex.split(f.read().replace("\\\n", " "), comments=True)
     return words[words.index("python") + 2:]
@@ -3512,7 +3534,22 @@ def _chaine(bf16: bool, **model_kwargs):
     from pathtracker_torch.eval import serve
 
     model_kwargs.setdefault("device", torch.device(DEVICE))
-    return serve.build(ckpt=CHECKPOINT, length=TIMESTEPS, bf16=bf16, **model_kwargs)
+    model_kwargs.setdefault("length", TIMESTEPS)
+    return serve.build(ckpt=CHECKPOINT, bf16=bf16, **model_kwargs)
+
+
+# The export's moves between devices. The CPU checks take EXPORT_CPU_BATCH
+# clips (chainE at T=64 on the card machine's CPU: seconds); the program
+# exported on the CPU has EXPORT_CPU_T steps. A program moved to another
+# device runs the ops it traced, in that device's summation order: its bf16
+# conv outputs round to neighbouring values where the sums differ in the
+# last f32 bits, and the recurrence carries that on, as between the fused
+# and the eager cell. So its scores are held by phase 4's rule for those
+# (MEAN_SCORE_ATOL, P99_SCORE_ATOL), the largest gap printed; the K1-K3
+# kernels' own 1e-5 does not survive 64 steps (measured on the card, PR 16:
+# 4.4e-4 at batch 8, 0.031 at batch 32, mean 0.0028).
+EXPORT_CPU_BATCH = 4
+EXPORT_CPU_T = 4
 
 
 def export_phase(F, kernel_rows: list[dict], serve_p50_ms) -> None:
@@ -3566,6 +3603,7 @@ def export_phase(F, kernel_rows: list[dict], serve_p50_ms) -> None:
     for row, n in zip(kernel_rows, program_launches):
         row["launches_export"] = n
         row["launches"] += n
+    moved = export_platforms(F, serve, program, model, calls[0][1])
     times = {"program": [], "live": []}
     x = calls[0][1]
     for path in ("program", "live"):
@@ -3586,6 +3624,76 @@ def export_phase(F, kernel_rows: list[dict], serve_p50_ms) -> None:
           f"per K1-K3 forward kernel per call; p50 at batch {BATCH}: program "
           f"{p50['program']:.2f} ms, live {p50['live']:.2f} ms (interleaved, "
           f"{TIMED_REQUESTS} each), phase 4's fused p50 {serve_p50_ms:.2f} ms", flush=True)
+    print(moved, flush=True)
+
+
+def export_platforms(F, serve, program, model, clips) -> str:
+    """--platforms: the card's program (saved for cpu,cuda) served on the
+    CPU against the card's scores; a cuda-only program refused on the CPU;
+    a program exported on the CPU served on the card through the K1-K3
+    kernels against the live model there. A line of what they gave."""
+    dev = torch.device(DEVICE)
+    x = clips[:EXPORT_CPU_BATCH]
+    os.makedirs(BUILD, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        both, card_only = os.path.join(tmp, "both.pt2"), os.path.join(tmp, "cuda.pt2")
+        serve.save_exported(program, both)
+        serve.save_exported(program, card_only, platforms="cuda")
+        on_card = serve.load_exported(both)
+        if on_card.device.type != "cuda":
+            fail(f"export: a cpu,cuda program loaded on {on_card.device} with a card present")
+        want = on_card(x).cpu()
+        before = [k.launches for k in F.KERNELS]
+        t0 = time.perf_counter()
+        got = serve.load_exported(both, device="cpu")(x.cpu())
+        cpu_s = time.perf_counter() - t0
+        if [k.launches for k in F.KERNELS] != before:
+            fail("export: the program served on the CPU launched a kernel")
+        gap = _gap(got, want)
+        if got.device.type != "cpu" or not _served_alike(got, want):
+            fail(f"export: the card's program on the CPU scores {gap} from the card's")
+        try:
+            serve.load_exported(card_only, device="cpu")
+        except ValueError as e:
+            refused = str(e)
+        else:
+            fail("export: a cuda-only program loaded on the CPU")
+        if "platforms cuda" not in refused:
+            fail(f"export: the refusal does not name the program's platforms: {refused}")
+
+        # Exported on the CPU (T=EXPORT_CPU_T), served on the card.
+        cpu_model = _chaine(True, device=torch.device("cpu"), length=EXPORT_CPU_T)
+        path = os.path.join(tmp, "cpu.pt2")
+        t0 = time.perf_counter()
+        serve.save_exported(serve.export_program(cpu_model, "InT", EXPORT_CPU_T), path)
+        export_s = time.perf_counter() - t0
+        served = serve.load_exported(path)
+        short = clips[:, :EXPORT_CPU_T].contiguous()
+        before = [k.launches for k in F.KERNELS]
+        moved = served(short)
+        torch.cuda.synchronize()
+        rose = [k.launches - b for k, b in zip(F.KERNELS, before)]
+        if served.device != dev or rose != [EXPORT_CPU_T] * 3 + [0] * 3:
+            fail(f"export: the CPU's program on {served.device} launched {rose}")
+        live = serve.make_inference_fn(_chaine(True, length=EXPORT_CPU_T), "InT")(short)
+        moved_gap = _gap(moved, live)
+        if not _served_alike(moved, live):
+            fail(f"export: the CPU's program on the card scores {moved_gap} from the "
+                 f"live model's there")
+    held = f"held: mean <= {MEAN_SCORE_ATOL}, p99 <= {P99_SCORE_ATOL}"
+    return (f"export --platforms: the card's program (cpu,cuda) on the CPU at batch "
+            f"{EXPORT_CPU_BATCH}: {cpu_s:.2f} s, no launch, scores {gap} from the "
+            f"card's ({held}); a cuda-only program refused there "
+            f"({os.path.basename(refused)}); chainE at T={EXPORT_CPU_T} exported on the "
+            f"CPU in {export_s:.2f} s, served on the card at batch {short.shape[0]}: "
+            f"{EXPORT_CPU_T} launches a K1-K3 forward kernel, scores {moved_gap} from "
+            f"the live model's ({held})")
+
+
+def _served_alike(a, b) -> bool:
+    """Phase 4's rule for two mixed paths' scores on the same clips."""
+    diff = (a.float().cpu() - b.float().cpu()).abs()
+    return diff.mean().item() <= MEAN_SCORE_ATOL and diff.quantile(0.99).item() <= P99_SCORE_ATOL
 
 
 def _zoo_batch(batch, seed, length=None):
@@ -3913,6 +4021,222 @@ def sfzoo_phase(F, Co, card: str) -> None:
           "launched", flush=True)
 
 
+# Phase 19: scripts/torch_reproduce_canonical.py's chain at full width (InT,
+# dims 32, kernel 7, batch 128, --bf16 --device-data --fused-steps 12, its
+# defaults) with only the depth cut: a window of 12 steps an epoch.
+CHAIN_DEPTH = {"SYNTH_TRAIN": "1536", "SYNTH_TEST": "128", "EPOCHS_A": "2",
+               "EPOCHS_B": "1", "EPOCHS_C": "1"}
+CHAIN_STAGES = (("A", 8, 1), ("B", 32, 5), ("C", 64, 14))  # tag, T, dist
+CHAIN_MATRIX_CLIPS = 128  # test clips of a matrix config the chain left unrendered (8 train)
+CHAIN_TIMEOUT = 600
+
+
+def _chain_script(name: str):
+    """A scripts/torch_*.py module of the checkout (its folder on the path,
+    where the render workers it spawns find it too)."""
+    import importlib
+
+    scripts = os.path.join(ROOT, "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    return importlib.import_module(name)
+
+
+def _chain_run(argv, env) -> str:
+    """The chain driver as a process; its output, or a failure."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "scripts",
+                                                        "torch_reproduce_canonical.py"), *argv],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=CHAIN_TIMEOUT)
+    if proc.returncode != 0:
+        fail(f"chain: the driver {argv} exited {proc.returncode}: "
+             f"{(proc.stdout + proc.stderr)[-3000:]}")
+    print(f"chain: driver {' '.join(argv) or '(the chain)'} took "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return proc.stdout
+
+
+def chain_roots_in_background():
+    """Start rendering phase 19's roots (the stages' at CHAIN_DEPTH, the
+    matrix's other configs at CHAIN_MATRIX_CLIPS test clips) in a scratch
+    folder under build/, in processes of their own with 2-pixel dots, while
+    phases 17 and 18 hold the card; (the folder, the render's future)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    matrix = _chain_script("torch_eval_matrix")
+    os.makedirs(BUILD, exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=BUILD)
+    data = os.path.join(tmp.name, "data")
+    stages = [(d, 1, t) for _, t, d in CHAIN_STAGES]
+    others = [(d["dist"], d["speed"], d["length"]) for d in matrix.configs()]
+
+    def render():
+        t0 = time.perf_counter()
+        matrix.render_missing(stages, RENDER_WORKERS // 2, (int(CHAIN_DEPTH["SYNTH_TRAIN"]),
+                                                            int(CHAIN_DEPTH["SYNTH_TEST"])),
+                              data, DOT_SIZE)
+        matrix.render_missing(others, RENDER_WORKERS // 2, (8, CHAIN_MATRIX_CLIPS), data,
+                              DOT_SIZE)
+        return time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(render)
+    pool.shutdown(wait=False)
+    return tmp, future
+
+
+def chain_phase(F, kernel_rows: list[dict], card: str, roots) -> None:
+    """The canonical chain A -> B -> C through its driver (each stage a
+    train CLI process on the card) with its report, the chain again, and the matrix
+    driver over C's best checkpoint, each config at a cut test size, on
+    the ``roots`` that ``chain_roots_in_background`` rendered."""
+    from pathtracker_torch.train.checkpoint import find_best_checkpoint
+
+    t_phase = time.perf_counter()
+    canon = _chain_script("torch_reproduce_canonical")
+    matrix = _chain_script("torch_eval_matrix")
+    os.makedirs(BUILD, exist_ok=True)
+    # Every process the phase starts renders 2-pixel dots, as the chain's
+    # roots are rendered.
+    scratch, rendering = roots
+    with scratch as tmp, _environ(PATHTRACKER_DOT_SIZE=str(DOT_SIZE)):
+        data, results = os.path.join(tmp, "data"), os.path.join(tmp, "results")
+        launches_log = os.path.join(tmp, "launches.jsonl")
+        # The stages train where DEVICE says (a rehearsal sets "cpu").
+        where = {"PATHTRACKER_TORCH_DEVICE": "cpu"} if DEVICE == "cpu" else {}
+        env = dict(os.environ, **CHAIN_DEPTH, **where, PATHTRACKER_DATA_ROOT=data,
+                   PATHTRACKER_DOT_SIZE=str(DOT_SIZE), PATHTRACKER_LAUNCHES=launches_log)
+        if not where:
+            env.pop("PATHTRACKER_TORCH_DEVICE", None)
+        # The roots, rendered as the stages would, since phase 17 began.
+        t0 = time.perf_counter()
+        render_s = rendering.result()
+        print(f"chain: the stages' roots ({CHAIN_DEPTH['SYNTH_TRAIN']} + "
+              f"{CHAIN_DEPTH['SYNTH_TEST']} clips) and the matrix's other configs "
+              f"({CHAIN_MATRIX_CLIPS} test clips) were rendered in {render_s:.2f} s behind "
+              f"phases 17-18; waited {time.perf_counter() - t0:.2f} s for them", flush=True)
+
+        first = _chain_run(["--results-root", results], env)
+        k = canon.knobs(env)
+        batch, fused = int(k["BATCH"]), int(k["FUSED_STEPS"])
+        with open(launches_log) as f:
+            stage_counts = [json.loads(line) for line in f]
+        if len(stage_counts) != len(CHAIN_STAGES):
+            fail(f"chain: {len(stage_counts)} stage processes reported launches, "
+                 f"expected {len(CHAIN_STAGES)}")
+        previous, chain_launches = None, [0] * len(F.KERNELS)
+        for (tag, length, dist), counts in zip(CHAIN_STAGES, stage_counts):
+            folder = canon.run_folder(results, tag, k)
+            have = sorted(os.listdir(folder))
+            want = ["hp_dict.npz", "saved_models", f"chain{tag}.txt", "train.npz", "val.npz"]
+            if have != sorted(want):
+                fail(f"chain {tag}: the run folder holds {have}, expected {sorted(want)}")
+            loaded = str(np.load(os.path.join(folder, "hp_dict.npz"))["loaded_ckpt"])
+            named = "None" if previous is None else find_best_checkpoint(previous)
+            if loaded != named:
+                fail(f"chain {tag}: hp_dict.npz names {loaded}, not {named}")
+            # A window of `fused` steps is warmed up once and captured once
+            # (each wrapper counts a graph's kernels at capture), and each
+            # epoch's validation runs its batches through the forward kernels.
+            epochs = int(k[f"EPOCHS_{tag}"])
+            val_batches = min(int(k["SYNTH_TEST"]) // batch, 5)
+            want_counts = ([2 * fused * 2 * length + epochs * val_batches * length] * 3
+                           + [2 * fused * length] * 3)
+            got = [counts[kern.__name__] for kern in F.KERNELS]
+            if got != want_counts or any(counts[n] for n in counts
+                                         if n not in {kk.__name__ for kk in F.KERNELS}):
+                fail(f"chain {tag}: kernel launches {counts}, expected K1-K3 {want_counts}")
+            chain_launches = [a + b for a, b in zip(chain_launches, got)]
+            log = os.path.join(results, "logs", f"{tag}.log")
+            with open(log) as f:
+                losses = [float(m.group(1)) for m in
+                          re.finditer(r"Loss: [\d.]+ \([\d.]+\) \(([\d.]+)\)", f.read())]
+            val = np.load(os.path.join(folder, "val.npz"))["balacc"]
+            print(f"chain {tag} (T={length}, dist {dist}): from "
+                  f"{os.path.basename(named) if previous else 'nothing'}; K1-K3 launches "
+                  f"{got}; epoch-mean losses {[round(v, 4) for v in losses]}; val meter "
+                  f"{[round(float(v), 2) for v in val]}", flush=True)
+            if len(val) != epochs or not np.all(np.isfinite(losses)):
+                fail(f"chain {tag}: {len(val)} val entries, losses {losses}")
+            previous = folder
+        stage_s = [float(m.group(1)) for m in
+                   re.finditer(r"^chain: \[[ABC]\] exit 0 after ([\d.]+) s", first, re.M)]
+        report = json.loads(first.strip().splitlines()[-1])
+        for tag in ("B", "C"):
+            held = report["stages"][tag].get("held_out")
+            if held is None or not (0.0 <= held["acc"] <= 1.0 and np.isfinite(held["loss"])):
+                fail(f"chain: the report has no held-out result for {tag}: {held}")
+        if not 0.0 <= report["jax_chainB"]["acc"] <= 1.0:
+            fail(f"chain: the report's JAX chainB result {report['jax_chainB']}")
+        print(f"chain: stages took {stage_s} s; report (cut roots): B "
+              f"{report['stages']['B']['held_out']['acc']:.4f}, C "
+              f"{report['stages']['C']['held_out']['acc']:.4f}, JAX chainB "
+              f"{report['jax_chainB']['acc']:.4f} held-out", flush=True)
+
+        # Again, the chain alone in this process (the report ran above): A
+        # and B are skipped, C continues its rolling checkpoint (no epoch
+        # left).
+        mtimes = {tag: os.path.getmtime(os.path.join(canon.run_folder(results, tag, k),
+                                                     "val.npz")) for tag in "AB"}
+        t0 = time.perf_counter()
+        tee = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            if not canon.chain(results, env):
+                fail("chain: the second invocation stopped the chain")
+        second = "".join(tee.text)
+        print(f"chain: the chain again took {time.perf_counter() - t0:.2f} s", flush=True)
+        for tag in "AB":
+            if (f"chain: [{tag}] done" not in second or os.path.getmtime(os.path.join(
+                    canon.run_folder(results, tag, k), "val.npz")) != mtimes[tag]):
+                fail(f"chain: the second invocation did not skip stage {tag}")
+        c_argv = next(line for line in second.splitlines() if line.startswith("chain: [C] "))
+        if "--ckpt" in c_argv:
+            fail(f"chain: the second invocation warm-started C again: {c_argv}")
+        with open(launches_log) as f:
+            rerun = [json.loads(line) for line in f][len(CHAIN_STAGES):]
+        if len(rerun) != 1 or any(rerun[0].values()):
+            fail(f"chain: the second invocation's C launched {rerun}")
+        print("chain: the second invocation skipped A and B, C resumed with nothing left "
+              "(no launch)", flush=True)
+
+        # The matrix over C's best, counted in this process.
+        best = find_best_checkpoint(canon.run_folder(results, "C", k))
+        for kern in F.KERNELS:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        tee = _Tee(sys.stdout)
+        with _environ(PATHTRACKER_DATA_ROOT=data, PATHTRACKER_DOT_SIZE=str(DOT_SIZE),
+                      **where), contextlib.redirect_stdout(tee):
+            got = matrix.main([best, os.path.join(tmp, "matrix"), "-b", str(batch),
+                               *shlex.split(k["EXTRA_FLAGS"])])
+        torch.cuda.synchronize()
+        matrix_s = time.perf_counter() - t0
+        order = [key for key in got]
+        want_order = [(d["dist"], d["speed"], d["length"]) for d in matrix.configs()]
+        text = "".join(tee.text)
+        if (order != want_order or order[0][2] != 64 or "MATRIX COMPLETE" not in text
+                or not all(0.0 <= a <= 1.0 and np.isfinite(b) for a, b in got.values())):
+            fail(f"chain: the matrix visited {order}, results {got}")
+        test_clips = {key: (int(CHAIN_DEPTH["SYNTH_TEST"]) if key == (14, 1, 64)
+                            else CHAIN_MATRIX_CLIPS) for key in order}
+        fwd = sum(n // batch * key[2] for key, n in test_clips.items())
+        matrix_counts = [kern.launches for kern in F.KERNELS]
+        if matrix_counts != [fwd] * 3 + [0] * 3:
+            fail(f"chain: the matrix launched {matrix_counts}, expected {fwd} a forward kernel")
+        chain_launches = [a + b for a, b in zip(chain_launches, matrix_counts)]
+        print(f"chain: matrix over C's best in {matrix_s:.2f} s, {len(order)} configs "
+              f"(T=64 first): " + "; ".join(f"{key} {a:.4f}" for key, (a, _) in got.items())
+              + f"; K1-K3 launches {matrix_counts}", flush=True)
+    for row, n in zip(kernel_rows, chain_launches):
+        row["launches_chain"] = n
+        row["launches"] += n
+    print(f"chain: phase 19 took {time.perf_counter() - t_phase:.2f} s; K1-K3 launches "
+          f"{chain_launches} (stages + matrix) at batch {batch} x 32 x 32 = "
+          f"{batch * SIDE * SIDE} rows, the width phases 3 and 5 hold each kernel at; "
+          f"{card}", flush=True)
+
+
 def resource_lines(log: str) -> list[str]:
     """'kernel: N registers, S bytes smem, spills' from ptxas -v's output."""
     out, name, spill = [], None, ""
@@ -4002,12 +4326,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     rbp_zoo_phase(F, loop_ms)
     torch.cuda.empty_cache()
+    chain_roots = chain_roots_in_background()  # phase 19's, behind phases 17-18
     rzoo_phase(F, Co, card)
     torch.cuda.empty_cache()
     sfzoo_phase(F, Co, card)
     torch.cuda.empty_cache()
-    for row in correlation_rows:  # not on the viz or export paths
-        row["launches_viz"] = row["launches_export"] = 0
+    chain_phase(F, kernel_rows, card, chain_roots)
+    torch.cuda.empty_cache()
+    for row in correlation_rows:  # not on the viz, export or chain paths
+        row["launches_viz"] = row["launches_export"] = row["launches_chain"] = 0
     kernel_rows += correlation_rows
     if any(row["launches"] <= 0 for row in kernel_rows):
         fail(f"a kernel was never launched on the main paths: {kernel_rows}")

@@ -39,10 +39,11 @@ def data_root() -> str:
     return os.environ.get("PATHTRACKER_DATA_ROOT", os.path.abspath("datasets"))
 
 
-def _config_dir(dist: int, speed: int, length: int, optical_flow: bool = False) -> str:
+def _config_dir(dist: int, speed: int, length: int, optical_flow: bool = False,
+                root: str | None = None) -> str:
     stem = "tfrecords_optic_flow" if optical_flow else "tfrecords"
     return os.path.join(
-        data_root(), f"pathtracker_{length}_32_32", f"{dist}_dist_speed_{speed}", stem
+        root or data_root(), f"pathtracker_{length}_32_32", f"{dist}_dist_speed_{speed}", stem
     )
 
 

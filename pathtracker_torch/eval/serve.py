@@ -13,8 +13,15 @@ Unlike the JAX package's StableHLO artifact, a ``.pt2`` is not free of
 model code: where the fused cell serves (--bf16 at 32 channels), the
 program calls the K1-K3 forward kernels as the custom ops
 ``torch.ops.pathtracker.*``, which ``load_exported`` registers by importing
-``pathtracker_torch.ops.int_fused``. The artifact runs on the device it was
-exported on.
+``pathtracker_torch.ops.int_fused``.
+
+A program serves on the platforms it was saved for (``--platforms``,
+``cpu,cuda`` by default; the JAX artifact's are ``cpu,tpu``), wherever it
+was exported: ``load_exported`` moves it to the card where one is present
+and listed, else to the CPU, and refuses a device the list does not name.
+The custom ops dispatch on their inputs' device: on the card they launch
+K1-K3, on the CPU they run the kernels' plain versions (what the CPU runs,
+not a fallback: on the card a kernel that fails still raises).
 
     python -m pathtracker_torch.eval.serve --model InT --length 64 --bf16 \
         --ckpt <checkpoint> --out int64.pt2 --selftest-batch 8
@@ -36,6 +43,10 @@ from torch import nn
 
 from pathtracker_torch import engine
 from pathtracker_torch.data.prepare import prepare_batch
+
+PLATFORMS = ("cpu", "cuda")
+DEFAULT_PLATFORMS = "cpu,cuda"
+_PLATFORMS_FILE = "platforms"  # the list, saved beside the program in the .pt2
 
 
 class InferenceProgram(nn.Module):
@@ -104,23 +115,50 @@ def _drop_metadata_asserts(exported):
     return exported
 
 
-def save_exported(program, path: str) -> None:
-    torch.export.save(program, path)
+def parse_platforms(platforms) -> tuple[str, ...]:
+    """``"cpu,cuda"`` (or a sequence of names) -> ('cpu', 'cuda'); a name
+    other than cpu or cuda, or an empty list, raises."""
+    names = platforms.split(",") if isinstance(platforms, str) else list(platforms)
+    names = tuple(dict.fromkeys(n.strip() for n in names if n.strip()))
+    unknown = [n for n in names if n not in PLATFORMS]
+    if unknown or not names:
+        raise ValueError(f"unknown platform(s) {unknown or names!r}: a program serves "
+                         f"on {' or '.join(PLATFORMS)}")
+    return names
 
 
-def load_exported(path: str):
-    """A saved program as a callable: uint8 [B,T,H,W,3] tensor (or array)
-    -> f32 [B]. Imports ``pathtracker_torch.ops.int_fused``, which registers
-    the custom ops the program may call."""
+def save_exported(program, path: str, platforms=DEFAULT_PLATFORMS) -> None:
+    """Write ``program`` as a .pt2 with the platforms it may serve on."""
+    torch.export.save(program, path,
+                      extra_files={_PLATFORMS_FILE: ",".join(parse_platforms(platforms))})
+
+
+def load_exported(path: str, device=None):
+    """A saved program as a callable on ``device``: uint8 [B,T,H,W,3] tensor
+    (or array) -> f32 [B]. ``None`` chooses the card where one is present and
+    the program lists cuda, else the CPU; a device the program's platforms
+    do not name raises. Imports ``pathtracker_torch.ops.int_fused``, which
+    registers the custom ops the program may call."""
+    from torch.export.passes import move_to_device_pass
+
     from pathtracker_torch.ops import int_fused  # noqa: F401  (registers the ops)
 
-    module = torch.export.load(path).module()
-    device = next((t.device for t in module.state_dict().values()), torch.device("cpu"))
+    extra = {_PLATFORMS_FILE: ""}
+    exported = torch.export.load(path, extra_files=extra)
+    platforms = parse_platforms(extra[_PLATFORMS_FILE] or DEFAULT_PLATFORMS)
+    if device is None:
+        device = "cuda" if "cuda" in platforms and torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    if device.type not in platforms:
+        raise ValueError(f"{path} was saved for platforms {','.join(platforms)}, "
+                         f"not {device.type}")
+    module = move_to_device_pass(exported, device).module()
 
     @torch.inference_mode()
     def served(raw_imgs):
         return module(torch.as_tensor(raw_imgs).to(device))
 
+    served.device, served.platforms = device, platforms
     return served
 
 
@@ -162,10 +200,10 @@ def main(argv=None):
     p.add_argument("--pretrained", action="store_true",
                    help="checkpoint was trained with --pretrained: bake the "
                         "Kinetics mean/std input normalization into the program")
-    p.add_argument("--platforms", default=None,
-                   help="accepted for the JAX package's command lines and "
-                        "ignored: there is no platform to choose, the program "
-                        "runs on the device it was exported on")
+    p.add_argument("--platforms", default=DEFAULT_PLATFORMS,
+                   help="comma-separated platforms the program may serve on: "
+                        "cpu, cuda (default: cpu,cuda); a load on another "
+                        "device is refused")
     p.add_argument("--batch", type=int, default=None,
                    help="static batch size (default: symbolic 'b')")
     p.add_argument("--logits", action="store_true",
@@ -177,6 +215,7 @@ def main(argv=None):
                         "model exactly")
     p.add_argument("--device", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    platforms = parse_platforms(args.platforms)
 
     model = build(model=args.model, ckpt=args.ckpt, length=args.length,
                   dimensions=args.dimensions, fb_kernel_size=args.fb_kernel_size,
@@ -184,16 +223,18 @@ def main(argv=None):
                   slowfast_cfg=args.slowfast_cfg, device=args.device)
     program = export_program(model, args.model, args.length, batch=args.batch,
                              probs=not args.logits, pretrained_norm=args.pretrained)
-    save_exported(program, args.out)
+    save_exported(program, args.out, platforms)
     print(f"exported {args.model} T={args.length} -> {args.out} "
           f"({os.path.getsize(args.out)} bytes, batch="
-          f"{'symbolic' if args.batch is None else args.batch})")
+          f"{'symbolic' if args.batch is None else args.batch}, "
+          f"platforms {','.join(platforms)})")
 
     if args.selftest_batch:
         b = args.selftest_batch
         rng = np.random.default_rng(0)
         x = rng.integers(0, 255, (b, args.length, 32, 32, 3), dtype=np.uint8)
-        got = load_exported(args.out)(x).cpu().numpy()
+        # On the device the live model runs on (listed or refused).
+        got = load_exported(args.out, next(model.parameters()).device)(x).cpu().numpy()
         want = make_inference_fn(model, args.model, probs=not args.logits,
                                  pretrained_norm=args.pretrained)(x).cpu().numpy()
         np.testing.assert_allclose(got, want, rtol=0, atol=0)

@@ -18,15 +18,19 @@ from pathtracker_torch.ops import initializers as init
 from pathtracker_torch.ops.layers import conv2d, dense, global_avg_pool
 
 
-def fill_(param: torch.Tensor, initializer, gen: torch.Generator) -> None:
-    """Overwrite ``param`` in place with ``initializer(gen, shape)``."""
+def fill_(param: torch.Tensor, initializer, gen: torch.Generator | None) -> None:
+    """Overwrite ``param`` in place with ``initializer(gen, shape)``; with
+    no ``gen``, leave it for its module to load."""
+    if gen is None:
+        return
     with torch.no_grad():
         param.copy_(initializer(gen, tuple(param.shape)))
 
 
-def make_readout(mod: nn.Module, dimensions: int, gen: torch.Generator) -> None:
+def make_readout(mod: nn.Module, dimensions: int, gen: torch.Generator | None) -> None:
     """Register the readout modules on ``mod`` (torch default inits;
-    target_conv bias zero-init per reference models/InT.py:206)."""
+    target_conv bias zero-init per reference models/InT.py:206; none
+    without ``gen``)."""
     mod.readout_conv = nn.utils.skip_init(nn.Conv2d, dimensions, 1, 1)
     mod.target_conv = nn.utils.skip_init(nn.Conv2d, 2, 1, 5, padding=2)
     mod.readout_dense = nn.utils.skip_init(nn.Linear, 1, 1)

@@ -60,7 +60,7 @@ from torch import nn
 from torch.autograd.function import once_differentiable
 
 from pathtracker_torch import resolve_device
-from pathtracker_torch.models import common
+from pathtracker_torch.models import common, int_init
 from pathtracker_torch.models.common import fill_
 from pathtracker_torch.ops import initializers as init
 from pathtracker_torch.ops import int_fused as F
@@ -282,7 +282,8 @@ class RCell(nn.Module):
     """The recurrent cell's parameters (reference models/InT.py rCell :58),
     named after the reference state_dict (``unit1.*``): 1x1 gate convs,
     OIHW k x k kernels, [C,1,1] per-channel scalars and two batch-stat BNs
-    (``bn.0``, ``bn.1``; only their affine parameters are used)."""
+    (``bn.0``, ``bn.1``; only their affine parameters are used). Drawn
+    from ``gen``; left for the owner to load without it."""
 
     def __init__(self, c, k, timesteps, use_attention, no_inh, lesions, gen):
         super().__init__()
@@ -295,7 +296,8 @@ class RCell(nn.Module):
             return conv
 
         def scalar(name, value):
-            setattr(self, name, nn.Parameter(init.constant(value)(gen, (c, 1, 1))))
+            setattr(self, name, nn.Parameter(torch.empty(c, 1, 1)))
+            fill_(getattr(self, name), init.constant(value), gen)
 
         if use_attention:
             gate("a_w_gate", init.constant(1.0))
@@ -311,9 +313,11 @@ class RCell(nn.Module):
             gate("e_w_gate", lambda g, s: -i_w.bias.detach())
             gate("e_u_gate", lambda g, s: -i_u.bias.detach())
 
-        self.w_exc = nn.Parameter(init.torch_orthogonal(gen, (c, c, k, k)))
+        self.w_exc = nn.Parameter(torch.empty(c, c, k, k))
+        fill_(self.w_exc, init.torch_orthogonal, gen)
         if not no_inh:
-            self.w_inh = nn.Parameter(init.torch_orthogonal(gen, (c, c, k, k)))
+            self.w_inh = nn.Parameter(torch.empty(c, c, k, k))
+            fill_(self.w_inh, init.torch_orthogonal, gen)
             if "alpha" not in lesions:
                 scalar("alpha", 1.0)
             if "mu" not in lesions:
@@ -350,7 +354,7 @@ class InT(nn.Module):
     k x k conv outputs, ``'conv_gates'`` also the four gate matmul outputs,
     ``'full'`` nothing more. ``remat=False`` stores everything. Gradients
     are the same under all of them.
-    Parameters are drawn from ``torch.Generator().manual_seed(seed)`` and
+    Parameters are the JAX package's init at ``seed`` (``int_init``),
     placed on ``device`` (``None`` means cuda).
     """
 
@@ -385,13 +389,15 @@ class InT(nn.Module):
                           and not self.lesions and "rbp" not in grad_method
                           and F.supported(c))
 
-        gen = torch.Generator().manual_seed(seed)
         self.preproc = nn.utils.skip_init(nn.Conv3d, 3, c, 1)
-        fill_(self.preproc.weight, init.torch_conv_default, gen)
-        fill_(self.preproc.bias, init.torch_conv_bias(3), gen)
         self.unit1 = RCell(c, kernel_size, timesteps, use_attention, no_inh,
-                           self.lesions, gen)
-        common.make_readout(self, c, gen)
+                           self.lesions, None)
+        common.make_readout(self, c, None)
+        # Every parameter as the JAX package's init_model draws it at this
+        # seed (int_init.py): how long InT stays on its plateau at chance
+        # depends on the draw, not only on its distribution.
+        self.load_state_dict(int_init.state_dict(seed, c, kernel_size, timesteps,
+                                                 use_attention, no_inh, self.lesions))
         self.to(resolve_device(device))
 
     def _cell_params(self, cast: bool):

@@ -156,13 +156,13 @@ def results_folder_for(args) -> str:
     return os.path.join(args.results_dir, stem, str(args.name))
 
 
-def init_model(args, timesteps: int, device=None):
+def init_model(args, timesteps: int, device=None, **model_kwargs):
     """The model with the run seed's init, on ``device`` (by default
     ``args.device``, cuda where the namespace has none), pretrained weights
-    applied under ``--pretrained``."""
+    applied under ``--pretrained``; ``model_kwargs`` reach its constructor."""
     model = engine.model_selector(args, timesteps=timesteps,
                                   device=device or getattr(args, "device", None),
-                                  seed=args.seed)
+                                  **{"seed": args.seed, **model_kwargs})
     if getattr(args, "pretrained", False):
         load_pretrained(model, args.model)
     return model
@@ -316,12 +316,15 @@ def _refuse_later_slices(args, device, mesh=None) -> None:
             "set COORDINATOR_ADDRESS, NUM_PROCESSES and PROCESS_ID in each")
 
 
-def main(args=None, max_steps_per_epoch: int | None = None):
+def main(args=None, max_steps_per_epoch: int | None = None,
+         model_kwargs: dict | None = None):
     """Train as the reference's mainclean.py does; ``max_steps_per_epoch``
-    caps the optimizer steps of each epoch. Returns the JAX package's dict —
-    the final weights (here the model's ``state_dict``), the results
-    folder, the logs, whether it stopped early — and the last epoch's train
-    meters (``batch_time`` and ``data_time`` among them)."""
+    caps the optimizer steps of each epoch, and ``model_kwargs`` reach the
+    model's constructor (e.g. ``fused=False``: InT's eager cell). Returns
+    the JAX package's dict — the final weights (here the model's
+    ``state_dict``), the results folder, the logs, whether it stopped
+    early — and the last epoch's train meters (``batch_time`` and
+    ``data_time`` among them)."""
     if args is None:
         args = parser.parse_args()
     opened = False
@@ -332,23 +335,23 @@ def main(args=None, max_steps_per_epoch: int | None = None):
         distributed.initialize(device=getattr(args, "device", None))
         opened = True
     try:
-        return _main(args, max_steps_per_epoch)
+        return _main(args, max_steps_per_epoch, model_kwargs or {})
     finally:
         if opened:
             distributed.shutdown()
 
 
-def _main(args, max_steps_per_epoch):
+def _main(args, max_steps_per_epoch, model_kwargs):
     if distributed.is_initialized():
         device, mesh = distributed.device(), make_mesh()
     else:
         device, mesh = resolve_device(getattr(args, "device", None)), None
     _refuse_later_slices(args, device, mesh)
     with data_group(mesh):
-        return _train(args, max_steps_per_epoch, device, mesh)
+        return _train(args, max_steps_per_epoch, device, mesh, model_kwargs)
 
 
-def _train(args, max_steps_per_epoch, device, mesh):
+def _train(args, max_steps_per_epoch, device, mesh, model_kwargs):
     ranks, rank, primary = ((1, 0, True) if mesh is None
                             else (mesh.size, mesh.rank, distributed.is_primary()))
     assert args.dist is not None, "You must pass a PT distance."
@@ -402,7 +405,7 @@ def _train(args, max_steps_per_epoch, device, mesh):
     os.makedirs(results_folder, exist_ok=True)
     ES = EarlyStopping(patience=200, results_folder=results_folder)
 
-    model = init_model(args, timesteps, device)
+    model = init_model(args, timesteps, device, **model_kwargs)
     names, params = _trained(model)
     print(sum(p.numel() for p in model.parameters()))
     if args.parallel:

@@ -423,10 +423,10 @@ def make_train_step(model, model_name: str, optimizer: Optimizer,
 
     ``layout`` (a ``parallel.mesh.Sharded`` of ``model``) trains the
     parameters laid out over a mesh: the optimizer is bound to this rank's
-    blocks, and each step takes this rank's block of the global batch
-    (``layout.local_batch``) and runs under the layout's groups, with the
-    whole weights gathered for it and each block's gradient reduced from
-    them. The step
+    blocks, and each step runs under the layout's groups, with the whole
+    weights gathered for it and each block's gradient reduced from them.
+    The step takes the batch it is given: the caller passes this rank's
+    block of the global batch, ``layout.local_batch((imgs, labels))``. The step
     takes the gradients of the gathered weights with ``autograd.grad`` as
     any step does: they are plain tensors, not a framework's sharded ones."""
     prep = dict(prepare_kwargs or {})

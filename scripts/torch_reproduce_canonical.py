@@ -1,0 +1,436 @@
+#!/usr/bin/env python3
+"""The canonical warm-start chain of the InT tracker, trained with
+pathtracker_torch from nothing (scripts/reproduce_canonical.sh's stages,
+knobs and chain logic), and its report against the JAX package's records.
+
+    python3 scripts/torch_reproduce_canonical.py            # the chain, then the report
+    python3 scripts/torch_reproduce_canonical.py --report   # the report alone
+    python3 scripts/torch_reproduce_canonical.py --report --every-checkpoint
+    python3 scripts/torch_reproduce_canonical.py --transfer  # B's checkpoints on C's shard
+    PATHTRACKER_TORCH_DEVICE=cpu EXTRA_FLAGS="-d 8 -k 3" ... # on the CPU, tiny
+
+Stages, each a ``python -m pathtracker_torch.train`` process on the card
+(the CPU where ``PATHTRACKER_TORCH_DEVICE=cpu``), all with ``--bf16
+--device-data --fused-steps $FUSED_STEPS --synth-train $SYNTH_TRAIN
+--synth-test $SYNTH_TEST --auto-resume $EXTRA_FLAGS``:
+
+  A  T=8,  dist 1,  cold start,        lr 2e-3, $EPOCHS_A (60) epochs
+  B  T=32, dist 5,  from A's best,     lr 3e-4, $EPOCHS_B (40) epochs
+  C  T=64, dist 14, from B's best,     lr 1e-4, $EPOCHS_C (400) epochs, --ema $EMA_C (0.998)
+
+A stage is done once its run folder has a best-val checkpoint; A and B are
+skipped then (unless ``FORCE_A=1`` / ``FORCE_B=1``). C always runs and
+continues its rolling checkpoint (``--auto-resume``); it is warm-started
+from B's best only while it has no best-val checkpoint of its own. The
+best checkpoint is ``train.checkpoint.find_best_checkpoint``'s. A stage that
+fails, or whose log shows that it was asked to stop ("SIGTERM: finishing
+step"), stops the chain; a SIGTERM to this script is passed on to the
+running stage, which checkpoints and exits, so a rerun continues it.
+
+Knobs (environment, with reproduce_canonical.sh's defaults): MODEL (InT;
+another name prefixes the run folders, e.g. hgru_chainA), BATCH (128),
+SYNTH_TRAIN (20000), SYNTH_TEST (2500), FUSED_STEPS (12), EXTRA_FLAGS,
+EPOCHS_A/B/C (60/40/400), EMA_C (0.998), FORCE_A, FORCE_B,
+PATHTRACKER_DOT_SIZE (2). The roots: ``--data-root`` (default
+$PATHTRACKER_DATA_ROOT, else build/chain/data; the registry renders each
+missing config there) and ``--results-root`` (default build/chain): run
+folders are ``<results-root>/results_conv/{L}_{S}_{D}/{PFX}chain{A,B,C}``,
+stage logs ``<results-root>/logs/{PFX}{A,B,C}.log``, the report's eval
+folders ``<results-root>/results/``. Nothing is written elsewhere.
+
+The report (``--report``, also run after the chain) evaluates B's and C's
+best-val checkpoints and the JAX package's own stage-B checkpoint
+(results_conv/32_1_5/chainB, epoch 23) on the full held-out passes of the
+chain's roots through ``eval.test_model.evaluate_model`` at the stages'
+batch with --bf16, once unseeded (as the JAX records were taken: one draw
+of the loader's order, a fresh one each run) and once per loader seed 0-9
+(the loader's spread: BatchNorm takes each batch's statistics, and the 68
+clips past the last full batch drop); its accuracy and BCE are the seeded
+passes' mean, the same on every run; prints each beside the JAX records
+and the greedy bars; compares each stage's val curve
+with the JAX package's val.npz (the first epoch above 75% balanced
+accuracy, the best value and its epoch); and ends with one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shlex
+import signal
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+STAGES = {  # tag: (length, dist, lr, epochs knob and default)
+    "A": (8, 1, "2e-3", ("EPOCHS_A", "60")),
+    "B": (32, 5, "3e-4", ("EPOCHS_B", "40")),
+    "C": (64, 14, "1e-4", ("EPOCHS_C", "400")),
+}
+SPEED = 1
+KNOBS = {"MODEL": "InT", "BATCH": "128", "SYNTH_TRAIN": "20000", "SYNTH_TEST": "2500",
+         "FUSED_STEPS": "12", "EXTRA_FLAGS": "", "EMA_C": "0.998"}
+YIELDED = "SIGTERM: finishing step"
+SEEDS = tuple(range(10))
+ABOVE = 75.0  # the val meter's mark of having left the chance plateau (percent)
+# The JAX package's records (BASELINE.md, "Reproduction chain from a clean
+# clone"): held-out accuracy on the full pass of each stage's root, and the
+# greedy nearest-neighbour bar on the same shard.
+JAX_CHAIN_B = os.path.join(ROOT, "results_conv", "32_1_5", "chainB", "saved_models",
+                           "model_val_acc_0090_epoch_23_checkpoint.pth.tar")
+RECORDS = {
+    "B": {"npz": os.path.join(ROOT, "results", "chainB",
+                              "test_perf_dist_5_speed_1_length_32.npz"),
+          "other_runs": [0.8939], "greedy": 0.804},
+    "C": {"npz": os.path.join(ROOT, "results", "chainC_eval_0070_epoch_34",
+                              "test_perf_dist_14_speed_1_length_64.npz"),
+          "other_runs": [0.6859], "greedy": 0.572},
+}
+MARGIN = 0.02  # a stage lands when its held-out accuracy is within 2 points of the JAX records'
+JAX_CURVES = {tag: os.path.join(ROOT, "results_conv", f"{length}_{SPEED}_{dist}",
+                                f"chain{tag}", "val.npz")
+              for tag, (length, dist, _, _) in STAGES.items()}
+
+
+def knobs(env=None) -> dict:
+    env = os.environ if env is None else env
+    out = {k: env.get(k, v) for k, v in KNOBS.items()}
+    for name, default in (knob for *_, knob in STAGES.values()):
+        out[name] = env.get(name, default)
+    out["PFX"] = "" if out["MODEL"] == "InT" else f"{out['MODEL']}_"
+    return out
+
+
+def run_folder(results_root: str, tag: str, k: dict) -> str:
+    length, dist, _, _ = STAGES[tag]
+    return os.path.join(results_root, "results_conv", f"{length}_{SPEED}_{dist}",
+                        f"{k['PFX']}chain{tag}")
+
+
+def stage_done(folder: str) -> bool:
+    """A stage counts as done once it has any best-val checkpoint."""
+    saved = os.path.join(folder, "saved_models")
+    return os.path.isdir(saved) and any(
+        n.startswith("model_val_acc_") and n.endswith(".tar") for n in os.listdir(saved))
+
+
+def best_checkpoint(folder: str) -> str:
+    from pathtracker_torch.train.checkpoint import find_best_checkpoint
+
+    return find_best_checkpoint(folder)
+
+
+def stage_flags(tag: str, k: dict, results_root: str, ckpt: str | None = None) -> list[str]:
+    """The flags of a stage's train command, in reproduce_canonical.sh's order."""
+    length, dist, lr, (epochs, _) = STAGES[tag]
+    flags = ["--model", k["MODEL"], "--name", f"{k['PFX']}chain{tag}",
+             "--length", str(length), "--speed", str(SPEED), "--dist", str(dist),
+             "-b", k["BATCH"], "--lr", lr, "--epochs", k[epochs], "--bf16",
+             "--device-data", "--fused-steps", k["FUSED_STEPS"]]
+    if tag == "C":
+        flags += ["--ema", k["EMA_C"]]
+    flags += ["--synth-train", k["SYNTH_TRAIN"], "--synth-test", k["SYNTH_TEST"],
+              "--results-dir", os.path.join(results_root, "results_conv"), "--auto-resume",
+              *shlex.split(k["EXTRA_FLAGS"])]
+    return flags + (["--ckpt", ckpt] if ckpt else [])
+
+
+class _Forward:
+    """While a stage runs, a SIGTERM to this process is passed on to it."""
+
+    def __init__(self):
+        self.proc, self.asked = None, False
+        self.previous = signal.signal(signal.SIGTERM, self)
+
+    def __call__(self, signum, frame):
+        self.asked = True
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+
+    def close(self):
+        signal.signal(signal.SIGTERM, self.previous)
+
+
+def run_stage(name: str, flags: list[str], log: str, env: dict, forward: _Forward) -> bool:
+    """One stage as a process with its output in ``log``; whether the chain
+    goes on."""
+    argv = [sys.executable, "-u", "-m", "pathtracker_torch.train", *flags]
+    print(f"chain: [{name}] {shlex.join(argv)}", flush=True)
+    t0 = time.perf_counter()
+    with open(log, "w") as out:
+        forward.proc = subprocess.Popen(argv, stdout=out, stderr=subprocess.STDOUT,
+                                        cwd=ROOT, env=env)
+        rc = forward.proc.wait()
+        forward.proc = None
+    with open(log) as f:
+        text = f.read()
+    for line in text.splitlines()[-3:]:
+        print(f"  {line}", flush=True)
+    print(f"chain: [{name}] exit {rc} after {time.perf_counter() - t0:.1f} s", flush=True)
+    if rc != 0:
+        print(f"chain: {name} failed rc={rc} (log: {log})", flush=True)
+        return False
+    if YIELDED in text:
+        print(f"chain: {name} was asked to stop: stopping the chain", flush=True)
+        return False
+    return True
+
+
+def chain(results_root: str, env: dict) -> bool:
+    """The three stages as reproduce_canonical.sh runs them; whether all ran."""
+    k = knobs(env)
+    logs = os.path.join(results_root, "logs")
+    os.makedirs(logs, exist_ok=True)
+    forward = _Forward()
+    try:
+        previous = None
+        for tag in STAGES:
+            folder = run_folder(results_root, tag, k)
+            force = env.get(f"FORCE_{tag}", "0") == "1"
+            if tag != "C" and stage_done(folder) and not force:
+                print(f"chain: [{k['PFX']}{tag}] done ({folder} has a best-val "
+                      "checkpoint): skipped", flush=True)
+            else:
+                # C is warm-started only while it has no best-val checkpoint.
+                warm = previous if tag != "C" or not stage_done(folder) else None
+                ckpt = best_checkpoint(warm) if warm else None
+                log = os.path.join(logs, f"{k['PFX']}{tag}.log")
+                if forward.asked or not run_stage(
+                        f"{k['PFX']}{tag}", stage_flags(tag, k, results_root, ckpt), log,
+                        env, forward):
+                    return False
+            previous = folder
+    finally:
+        forward.close()
+    print("chain: done", flush=True)
+    return True
+
+
+# ---------------------------------- report ----------------------------------
+
+def curve(path: str) -> dict | None:
+    """The val meter's balanced accuracy (percent, one entry an epoch): the
+    first epoch above ABOVE, the best value and its epoch."""
+    if not os.path.exists(path):
+        return None
+    balacc = np.asarray(np.load(path)["balacc"], dtype=np.float64)
+    if balacc.size == 0:
+        return None
+    above = np.nonzero(balacc > ABOVE)[0]
+    return {"epochs": int(balacc.size),
+            "first_above_75": int(above[0]) if above.size else None,
+            "best": float(balacc.max()), "best_epoch": int(np.argmax(balacc))}
+
+
+def _eval_args(k: dict, results_root: str, tag: str, device, ckpt: str):
+    """The stage's own flags as the eval reads them (model, width, batch,
+    --bf16), with ``ckpt``."""
+    from pathtracker_torch.utils.opts import parser
+
+    args = parser.parse_args(stage_flags(tag, k, results_root))
+    args.ckpt, args.device = ckpt, device
+    return args
+
+
+def held_out(args, dist: int, length: int, folder: str) -> dict:
+    """Accuracy and BCE of ``args.ckpt`` on the full held-out pass of the
+    (dist, 1, length) root: evaluate_model once, its loader unseeded (a new
+    order each run), then the same loader seeded with each of SEEDS; the
+    seeded passes' mean is the result."""
+    from pathtracker_torch.eval import test_model
+
+    t0 = time.perf_counter()
+    acc, loss = test_model.evaluate_model(folder, args, prep_gifs=0, dist=dist,
+                                          speed=SPEED, length=length)
+    passes = seeded_passes(args, dist, length, SEEDS)
+    seeded = passes["seeded"]
+    return {"ckpt": os.path.relpath(args.ckpt, ROOT) if args.ckpt.startswith(ROOT)
+            else args.ckpt, "acc": passes["acc"], "loss": passes["loss"],
+            "unseeded": {"acc": float(acc), "loss": float(loss)}, "seeded": seeded,
+            "acc_range": [min(s["acc"] for s in seeded), max(s["acc"] for s in seeded)],
+            "loss_range": [min(s["loss"] for s in seeded), max(s["loss"] for s in seeded)],
+            "clips": seeded[0]["batches"] * args.batch_size,
+            "seconds": time.perf_counter() - t0}
+
+
+def seeded_passes(args, dist: int, length: int, seeds) -> dict:
+    """``args.ckpt`` on the full held-out pass of the (dist, 1, length)
+    root under each loader seed of ``seeds``: the mean accuracy and BCE and
+    each pass's."""
+    from pathtracker_torch import engine
+    from pathtracker_torch.data.pipeline import tfr_data_loader
+    from pathtracker_torch.eval import test_model
+
+    root, timesteps, _, _ = engine.dataset_selector(dist, SPEED, length)
+    model = engine.load_ckpt(engine.model_selector(args, timesteps, device=args.device),
+                             args.ckpt).eval()
+    seeded = []
+    for seed in seeds:
+        loader = tfr_data_loader(os.path.join(root, "test-*"), batch_size=args.batch_size,
+                                 drop_remainder=True, timesteps=timesteps, seed=seed)
+        accs, losses, _ = test_model.evaluate_batches(model, args.model, loader)
+        seeded.append({"seed": seed, "acc": float(np.mean(accs)),
+                       "loss": float(np.mean(losses)), "batches": len(accs)})
+    return {"acc": float(np.mean([s["acc"] for s in seeded])),
+            "loss": float(np.mean([s["loss"] for s in seeded])), "seeded": seeded}
+
+
+def transfer(results_root: str, env: dict, seeds=SEEDS[:3]) -> dict:
+    """Every stage-B checkpoint, the port's chain's and the JAX package's,
+    scored on stage C's held-out shard (T=64, dist 14) before any stage-C
+    step: how well each start that C could be warmed from does there."""
+    k = knobs(env)
+    device = env.get("PATHTRACKER_TORCH_DEVICE") or None
+    length, dist, _, _ = STAGES["C"]
+    out = {}
+    for who, folder in (("port", run_folder(results_root, "B", k)),
+                        ("jax", os.path.dirname(JAX_CHAIN_B))):
+        saved = os.path.join(folder, "saved_models") if who == "port" else folder
+        for name in sorted(os.listdir(saved)) if os.path.isdir(saved) else ():
+            if not name.endswith(".tar"):
+                continue
+            args = _eval_args(k, results_root, "C", device, os.path.join(saved, name))
+            if who == "jax":
+                args.model, args.dimensions, args.fb_kernel_size = "InT", 32, 7
+            got = seeded_passes(args, dist, length, seeds)
+            out.setdefault(who, {})[name] = got
+            print(f"report: transfer [{who} B] {name} on C's shard: {_pct(got['acc'])} / "
+                  f"{got['loss']:.4f} BCE (mean of {len(seeds)} seeded passes)", flush=True)
+    return out
+
+
+def _card() -> str | None:
+    try:
+        return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              timeout=60, check=True).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return None
+
+
+def _pct(x) -> str:
+    return "-" if x is None else f"{100 * x:.2f}%"
+
+
+def report(results_root: str, env: dict, every: bool = False) -> dict:
+    """The chain's numbers beside the JAX package's; the summary dict.
+    ``every``: also score each of B's and C's other checkpoints (every
+    best-val one and the rolling one, which holds the raw weights, not
+    C's EMA) on the same passes."""
+    k = knobs(env)
+    device = env.get("PATHTRACKER_TORCH_DEVICE") or None
+    out = {"card": _card(), "device": device or "cuda", "stages": {}, "knobs": {
+        n: k[n] for n in ("MODEL", "BATCH", "SYNTH_TRAIN", "SYNTH_TEST", "FUSED_STEPS",
+                          "EXTRA_FLAGS", "EPOCHS_A", "EPOCHS_B", "EPOCHS_C", "EMA_C")}}
+    print(f"report: card {out['card'] or 'none'}, device {out['device']}", flush=True)
+    evals = os.path.join(results_root, "results")
+    for tag, (length, dist, _, _) in STAGES.items():
+        folder = run_folder(results_root, tag, k)
+        row = {"curve": curve(os.path.join(folder, "val.npz")),
+               "jax_curve": curve(JAX_CURVES[tag])}
+        for name in ("curve", "jax_curve"):
+            c = row[name]
+            print(f"report: [{tag}] {'port' if name == 'curve' else 'JAX '} val meter: "
+                  + ("none" if c is None else
+                     f"{c['epochs']} epochs, first above {ABOVE:g}% at epoch "
+                     f"{c['first_above_75']}, best {c['best']:.2f}% at epoch "
+                     f"{c['best_epoch']}"), flush=True)
+        if tag in RECORDS and stage_done(folder):
+            args = _eval_args(k, results_root, tag, device, best_checkpoint(folder))
+            row["held_out"] = held_out(args, dist, length,
+                                       os.path.join(evals, f"{k['PFX']}chain{tag}_eval"))
+            saved, best = os.path.join(folder, "saved_models"), os.path.abspath(args.ckpt)
+            for name in sorted(os.listdir(saved)) if every else ():
+                if name.endswith(".tar") and os.path.join(os.path.abspath(saved), name) != best:
+                    args.ckpt = os.path.join(saved, name)
+                    got = held_out(args, dist, length,
+                                   os.path.join(evals, f"{k['PFX']}chain{tag}_every"))
+                    row.setdefault("every_checkpoint", {})[name] = got
+                    print(f"report: [{tag}] {name}: {_pct(got['acc'])} / {got['loss']:.4f} "
+                          f"BCE held-out (seeded mean; unseeded "
+                          f"{_pct(got['unseeded']['acc'])})", flush=True)
+        out["stages"][tag] = row
+    jax_args = _eval_args(k, results_root, "B", device, JAX_CHAIN_B)
+    jax_args.model, jax_args.dimensions, jax_args.fb_kernel_size = "InT", 32, 7
+    out["jax_chainB"] = held_out(jax_args, STAGES["B"][1], STAGES["B"][0],
+                                 os.path.join(evals, "jax_chainB_eval"))
+    verdicts = {}
+    for tag, record in RECORDS.items():
+        saved = np.load(record["npz"])
+        want = {"acc": float(saved["arr_0"]), "loss": float(saved["arr_1"])}
+        got = out["stages"][tag].get("held_out")
+        runs = [want["acc"], *record["other_runs"]]
+        line = (f"report: [{tag}] held-out: port {_pct(got and got['acc'])} / "
+                f"{'-' if got is None else format(got['loss'], '.4f')} BCE, the mean of "
+                f"{len(SEEDS)} seeded passes ("
+                f"{'-' if got is None else ' to '.join(_pct(a) for a in got['acc_range'])}; "
+                f"unseeded {_pct(got and got['unseeded']['acc'])}); "
+                f"JAX record {_pct(want['acc'])} / {want['loss']:.4f} BCE, other runs "
+                f"{', '.join(_pct(a) for a in record['other_runs'])}; greedy "
+                f"{_pct(record['greedy'])}")
+        print(line, flush=True)
+        out["stages"][tag]["jax_record"] = dict(want, other_runs=record["other_runs"],
+                                                greedy=record["greedy"])
+        verdicts[tag] = None if got is None else bool(got["acc"] >= min(runs) - MARGIN)
+    jb = out["jax_chainB"]
+    saved = np.load(RECORDS["B"]["npz"])
+    record_acc = float(saved["arr_0"])
+    verdicts["jax_chainB_in_spread"] = bool(jb["acc_range"][0] <= record_acc
+                                            <= jb["acc_range"][1])
+    print(f"report: JAX chainB (epoch 23) scored by the port on B's shard: "
+          f"{_pct(jb['acc'])} / {jb['loss']:.4f} BCE seeded mean, seeded passes "
+          f"{' to '.join(_pct(a) for a in jb['acc_range'])}, unseeded "
+          f"{_pct(jb['unseeded']['acc'])}; its record "
+          f"{_pct(record_acc)} {'inside' if verdicts['jax_chainB_in_spread'] else 'outside'}"
+          " the spread", flush=True)
+    curve_a = out["stages"]["A"]["curve"]
+    verdicts["A_left_plateau"] = (None if curve_a is None
+                                  else curve_a["first_above_75"] is not None)
+    out["verdicts"] = verdicts
+    print(f"report: verdicts {verdicts} (a stage lands within {100 * MARGIN:g} points "
+          "of the lower JAX record)", flush=True)
+    return out
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--report", action="store_true",
+                   help="run the report alone (the chain runs it at its end)")
+    p.add_argument("--every-checkpoint", action="store_true",
+                   help="the report also scores B's and C's other checkpoints")
+    p.add_argument("--transfer", action="store_true",
+                   help="instead of the report, score every stage-B checkpoint, the "
+                        "chain's and the JAX package's, on stage C's shard")
+    p.add_argument("--data-root", default=None,
+                   help="where the configs are rendered (default $PATHTRACKER_DATA_ROOT, "
+                        "else build/chain/data)")
+    p.add_argument("--results-root", default=os.path.join(ROOT, "build", "chain"),
+                   help="where the run folders, stage logs and eval folders go")
+    a = p.parse_args(argv)
+    results_root = os.path.abspath(a.results_root)
+    data_root = os.path.abspath(a.data_root or os.environ.get("PATHTRACKER_DATA_ROOT")
+                                or os.path.join(ROOT, "build", "chain", "data"))
+    os.environ["PATHTRACKER_DATA_ROOT"] = data_root
+    os.environ.setdefault("PATHTRACKER_DOT_SIZE", "2")
+    # A root the report finds missing is rendered as the stages render theirs.
+    k = knobs()
+    os.environ["PATHTRACKER_SYNTH_TRAIN"] = k["SYNTH_TRAIN"]
+    os.environ["PATHTRACKER_SYNTH_TEST"] = k["SYNTH_TEST"]
+    env = dict(os.environ)
+    if not (a.report or a.transfer) and not chain(results_root, env):
+        return 1
+    if a.transfer:
+        print(json.dumps({"transfer": transfer(results_root, env)}), flush=True)
+        return 0
+    print(json.dumps(report(results_root, env, a.every_checkpoint)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -114,7 +114,7 @@ def test_zoo_phase_is_wired_before_the_kernels_line_and_imports_no_jax():
     assert order == sorted(order)
     doc = chip_smoke.__doc__
     assert doc.index("\n 16. ") < doc.index("\n 17. the rest of the recurrent zoo") \
-        < doc.index("\n 19. one JSON line naming every kernel")
+        < doc.index("\n 20. one JSON line naming every kernel")
     assert set(chip_smoke.RZOO_MODELS) == set(registry.VIDEO_RESNETS) | {
         "stlstm", "fflstm", "lrcn", "lrcn_last", "ffnet"}
     assert set(chip_smoke.RZOO_BF16) <= set(registry.VIDEO_RESNETS)
@@ -128,7 +128,7 @@ def test_zoo_phase_is_wired_before_the_kernels_line_and_imports_no_jax():
 
 def test_slowfast_phase_is_wired_before_the_kernels_line_and_imports_no_jax():
     """Phase 18 (SlowFast and the transformer baselines) runs after phase
-    17 and before the kernels line (phase 19), over every name that slice
+    17 and before the kernels line (phase 20), over every name that slice
     ported, with SlowFast's dropout checked and the CLIs of one SlowFast
     and one transformer; the phase imports nothing of JAX."""
     import inspect
@@ -140,7 +140,7 @@ def test_slowfast_phase_is_wired_before_the_kernels_line_and_imports_no_jax():
     assert order == sorted(order)
     doc = chip_smoke.__doc__
     assert doc.index("\n 17. the rest of the recurrent zoo") < doc.index(
-        "\n 18. SlowFast") < doc.index("\n 19. one JSON line naming every kernel")
+        "\n 18. SlowFast") < doc.index("\n 20. one JSON line naming every kernel")
     assert set(chip_smoke.SFZOO_MODELS) == set(registry.SLOWFAST) | set(registry.TRANSFORMERS)
     assert set(chip_smoke.SFZOO_DROPOUT) == set(registry.SLOWFAST)
     assert set(chip_smoke.SFZOO_CLI) <= set(chip_smoke.SFZOO_MODELS)
@@ -150,6 +150,32 @@ def test_slowfast_phase_is_wired_before_the_kernels_line_and_imports_no_jax():
         chip_smoke._rzoo_parity, chip_smoke._rzoo_cli, chip_smoke._rzoo_model))
     assert not any(word in source for word in ("jax", "flax", "optax", "pathtracker_tpu"))
     assert "launches" in inspect.getsource(chip_smoke.sfzoo_phase)
+
+
+def test_chain_phase_is_wired_before_the_kernels_line_and_imports_no_jax():
+    """Phase 19 (the canonical chain through its driver, the report, the
+    matrix) runs after phase 18 and before the kernels line, cuts only the
+    depth (the driver's batch, fused steps, model and width stay its
+    defaults), counts every stage's launches, and imports nothing of JAX,
+    nor do the two drivers it runs."""
+    import inspect
+
+    main = inspect.getsource(chip_smoke.main)
+    order = [main.index(call) for call in ("sfzoo_phase(", "chain_phase(", '{"kernels"')]
+    assert order == sorted(order)
+    doc = chip_smoke.__doc__
+    assert doc.index("\n 18. SlowFast") < doc.index("\n 19. the canonical warm-start") \
+        < doc.index("\n 20. one JSON line naming every kernel")
+    assert set(chip_smoke.CHAIN_DEPTH) == {"SYNTH_TRAIN", "SYNTH_TEST", "EPOCHS_A",
+                                           "EPOCHS_B", "EPOCHS_C"}
+    assert int(chip_smoke.CHAIN_DEPTH["SYNTH_TRAIN"]) % chip_smoke.BATCH == 0
+    assert [(t, d) for _, t, d in chip_smoke.CHAIN_STAGES] == [(8, 1), (32, 5), (64, 14)]
+    source = inspect.getsource(chip_smoke.chain_phase)
+    assert "PATHTRACKER_LAUNCHES" in source and "launches_chain" in source
+    for name in ("torch_reproduce_canonical.py", "torch_eval_matrix.py"):
+        with open(os.path.join(ROOT, "scripts", name)) as f:
+            text = f.read()
+        assert not any(w in text for w in ("import jax", "from jax", "pathtracker_tpu."))
 
 
 def test_parallel_phase_is_wired_into_the_resident_phase_and_its_ranks():

@@ -800,6 +800,53 @@ def test_cuda_exported_program_is_exact_and_launches_the_kernels(cuda, tmp_path)
 
 
 @pytest.mark.gpu
+def test_cuda_programs_serve_on_their_platforms(cuda, tmp_path):
+    """--platforms: a cpu,cuda program exported on the card serves on the
+    CPU (the kernels' plain versions), its scores held to the card's by
+    chip_smoke's phase-4 rule for two mixed paths (the convs sum in another
+    order there); one exported on the CPU serves on the card through K1-K3,
+    held to the live model the same way; a cuda-only program is refused on
+    the CPU, with an error that names its platforms."""
+    import numpy as np
+
+    from pathtracker_torch.eval import serve
+
+    t = 4
+    card = InT(dimensions=C, timesteps=t, kernel_size=3, dtype="bfloat16", device=cuda).eval()
+    cpu = InT(dimensions=C, timesteps=t, kernel_size=3, dtype="bfloat16", device="cpu").eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    x = np.random.default_rng(7).integers(0, 256, (6, t, 32, 32, 3), np.uint8)
+    live = serve.make_inference_fn(card, "InT")(x)
+
+    from_card = str(tmp_path / "card.pt2")
+    serve.save_exported(serve.export_program(card, "InT", t), from_card)
+    on_card = serve.load_exported(from_card)
+    assert on_card.device.type == "cuda" and torch.equal(on_card(x), live)
+    before = [k.launches for k in F.KERNELS]
+    on_cpu = serve.load_exported(from_card, device="cpu")(x)
+    assert [k.launches for k in F.KERNELS] == before
+    assert on_cpu.device.type == "cpu"
+    assert chip_smoke._served_alike(on_cpu, live)
+
+    from_cpu = str(tmp_path / "cpu.pt2")
+    serve.save_exported(serve.export_program(cpu, "InT", t), from_cpu)
+    served = serve.load_exported(from_cpu)
+    for k in F.KERNELS:
+        k.launches = 0
+    moved = served(x)
+    torch.cuda.synchronize()
+    assert served.device.type == "cuda" and moved.is_cuda
+    assert [k.launches for k in F.FORWARD_KERNELS] == [t] * 3
+    assert chip_smoke._served_alike(moved, live)
+
+    card_only = str(tmp_path / "cuda.pt2")
+    serve.save_exported(serve.export_program(card, "InT", t), card_only, platforms="cuda")
+    assert serve.load_exported(card_only).device.type == "cuda"
+    with pytest.raises(ValueError, match="platforms cuda, not cpu"):
+        serve.load_exported(card_only, device="cpu")
+
+
+@pytest.mark.gpu
 def test_cuda_rbp_step_runs_the_eager_cell(cuda):
     """--algo rbp --bf16 at 32 channels: no K1-K3 launch, finite gradients,
     the Neumann terms counted."""

@@ -31,13 +31,18 @@ def fused():
     return model
 
 
+@pytest.fixture(scope="module")
+def program(fused):
+    """``fused``'s program with a symbolic batch (one trace for the file)."""
+    return serve.export_program(fused, "InT", T, height=HW, width=HW)
+
+
 def _custom_ops(program):
     return sorted({str(n.target) for n in program.graph.nodes
                    if str(n.target).startswith("pathtracker.")})
 
 
-def test_symbolic_batch_round_trip(fused, tmp_path):
-    program = serve.export_program(fused, "InT", T, height=HW, width=HW)
+def test_symbolic_batch_round_trip(fused, program, tmp_path):
     assert _custom_ops(program) == ["pathtracker.k1_attention.default",
                                     "pathtracker.k2_inhibition.default",
                                     "pathtracker.k3_excitation.default"]
@@ -84,13 +89,87 @@ def test_cli_from_a_checkpoint(tmp_path, capsys):
     out = tmp_path / "int.pt2"
     serve.main(["--model", "InT", "--length", str(T), "-d", "8", "-k", "3",
                 "--ckpt", ckpt, "--out", str(out), "--selftest-batch", "3",
-                "--platforms", "cpu,tpu", "--device", "cpu"])
+                "--platforms", "cpu,cuda", "--device", "cpu"])
     printed = capsys.readouterr().out
-    assert "bytes, batch=symbolic" in printed and "selftest ok" in printed
+    assert "bytes, batch=symbolic, platforms cpu,cuda" in printed
+    assert "selftest ok" in printed
     x = _frames(4, seed=9, hw=32)
     assert torch.equal(serve.load_exported(str(out))(x),
                        serve.make_inference_fn(model, "InT")(x))
-    assert "there is no platform to choose" in serve_help()
+    assert "cpu, cuda (default: cpu,cuda)" in serve_help()
+
+
+def _saved_platforms(path):
+    extra = {"platforms": None}
+    torch.export.load(path, extra_files=extra)
+    return extra["platforms"]
+
+
+def test_default_platforms_round_trip(fused, program, tmp_path):
+    """A program saved without a list serves on cpu,cuda: the list is in the
+    .pt2, and a CPU-only host loads it on the CPU."""
+    path = str(tmp_path / "int.pt2")
+    serve.save_exported(program, path)
+    assert _saved_platforms(path) == "cpu,cuda"
+    served = serve.load_exported(path)
+    assert served.platforms == ("cpu", "cuda") and served.device == torch.device("cpu")
+    x = _frames(3, seed=4)
+    assert torch.equal(served(x), serve.make_inference_fn(fused, "InT")(x))
+
+
+def test_cpu_cuda_program_matches_the_jax_artifact(tmp_path):
+    """Weights carried from the JAX package's init (its own checkpoint
+    writer): the port's cpu,cuda program, loaded on the CPU, equals the live
+    model bit for bit and the JAX package's StableHLO artifact (cpu) at the
+    f32 parity tolerance of tests/test_int_parity.py (atol 1e-3 over 5
+    steps; T=3 here)."""
+    import types
+
+    from pathtracker_tpu.eval import serve as jserve
+    from pathtracker_tpu.train import checkpoint as jckpt
+    from pathtracker_tpu.train.loop import init_model
+
+    margs = types.SimpleNamespace(model="InT", seed=0, dimensions=8, fb_kernel_size=3,
+                                  algo="bptt", penalty=False, optical_flow=False,
+                                  pretrained=False, slowfast_cfg=None, bf16=False)
+    jmodel, variables = init_model(margs, T)
+    ckpt = str(tmp_path / "jax_init.pth.tar")
+    jckpt.save_checkpoint(ckpt, variables["params"])
+    artifact = jserve.export_stablehlo(jmodel, "InT", variables["params"], T,
+                                       height=HW, width=HW, platforms=("cpu",))
+
+    model = serve.build(ckpt=ckpt, length=T, dimensions=8, fb_kernel_size=3, device="cpu")
+    path = str(tmp_path / "int.pt2")
+    serve.save_exported(serve.export_program(model, "InT", T, height=HW, width=HW), path)
+    served = serve.load_exported(path, device="cpu")
+    x = _frames(4, seed=5)
+    got = served(x)
+    assert torch.equal(got, serve.make_inference_fn(model, "InT")(x))
+    want = np.asarray(jserve.load_exported(artifact)(x))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-3)
+
+
+def test_cuda_only_program_is_refused_on_a_cpu_host(program, tmp_path, monkeypatch):
+    path = str(tmp_path / "int.pt2")
+    serve.save_exported(program, path, platforms="cuda")
+    assert _saved_platforms(path) == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cpu"):
+        with pytest.raises(ValueError, match="saved for platforms cuda, not cpu"):
+            serve.load_exported(path, device=device)
+
+
+@pytest.mark.parametrize("platforms", ["tpu", "cpu,tpu", " , "])
+def test_unknown_platforms_are_refused(platforms, tmp_path):
+    """A name other than cpu or cuda is refused, by the CLI before the model
+    is built, with an error that names the two."""
+    with pytest.raises(ValueError, match="serves on cpu or cuda"):
+        serve.parse_platforms(platforms)
+    with pytest.raises(ValueError, match="serves on cpu or cuda"):
+        serve.main(["--model", "InT", "--length", str(T), "-d", "8", "-k", "3",
+                    "--out", str(tmp_path / "x.pt2"), "--platforms", platforms,
+                    "--device", "cpu"])
+    assert not (tmp_path / "x.pt2").exists()
 
 
 def serve_help():

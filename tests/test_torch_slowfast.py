@@ -447,7 +447,8 @@ def test_serve_cli_builds_slowfast_from_its_cfg(tmp_path, monkeypatch):
     cfg.write_text("RESNET:\n  WIDTH_PER_GROUP: 8\nSLOWFAST:\n  ALPHA: 2\n")
     exported = []
     monkeypatch.setattr(serve, "export_program", lambda model, *a, **k: exported.append(model))
-    monkeypatch.setattr(serve, "save_exported", lambda program, path: open(path, "wb").close())
+    monkeypatch.setattr(serve, "save_exported",
+                        lambda program, path, *a, **k: open(path, "wb").close())
     serve.main(["--model", "slowfast", "--slowfast_cfg", str(cfg), "--length", "4",
                 "--out", str(tmp_path / "sf.pt2"), "--device", "cpu"])
     (net,) = exported

@@ -229,12 +229,18 @@ Phases, printed in order; any failure exits non-zero before the last line:
      window, validation's forward), its stage seconds, then the report's
      held-out results; the chain again in this process, without the
      report: A and B skipped untouched, C resumed without --ckpt and
-     nothing left to train;
+     nothing left to train; stage A again on the eager mixed cell
+     (CELL=eager --until A, a process of the chain script through loop.main):
+     no K1-K3 launch, a finite loss every epoch;
      scripts/torch_eval_matrix.py over C's best checkpoint in this process
      (8 configs, T=64 first, CHAIN_MATRIX_CLIPS test clips each, the
      forward kernels' launches exact); the phase's seconds;
  20. one JSON line naming every kernel with its numbers (launches summed over
-     the main paths, with each path's count beside).
+     the main paths, with each path's count beside), after a line that
+     counts the processes this script started that still ran (stopped and
+     reaped there; the script is its descendants' subreaper, so orphaned
+     grandchildren are found too; at exit, on a failure or on SIGTERM, the
+     same is done).
 The last line is {"ok": true, "device": {...}}. It needs a CUDA card and
 the repository beside it; without either it exits non-zero and prints no
 result.
@@ -242,6 +248,7 @@ result.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import glob
 import json
@@ -508,6 +515,100 @@ SFZOO_CLI = ("slowfast", "performer")
 def fail(msg: str):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+PR_SET_CHILD_SUBREAPER = 36
+STOP_GRACE_S = 5.0  # from SIGTERM to SIGKILL for a process left running
+
+
+def adopt_orphans() -> None:
+    """Make this process the subreaper of its descendants (prctl), so a
+    process whose parent ended before it is re-parented here and
+    ``stop_children`` still finds it."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        print(f"chip_smoke: prctl(PR_SET_CHILD_SUBREAPER) failed: "
+              f"{os.strerror(ctypes.get_errno())}", file=sys.stderr)
+
+
+def _descendants() -> dict[int, str]:
+    """The live (not zombie) processes under this one, from /proc: pid to
+    command line."""
+    parent, state = {}, {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        state[int(entry)], parent[int(entry)] = fields[0], int(fields[1])
+    found, todo = [], [os.getpid()]
+    while todo:
+        pid = todo.pop()
+        kids = [p for p, pp in parent.items() if pp == pid]
+        found += kids
+        todo += kids
+    out = {}
+    for pid in found:
+        if state[pid] == "Z":
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                out[pid] = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:
+            pass
+    return out
+
+
+def _reap() -> None:
+    """Collect the exit status of every child that has ended (orphans
+    re-parented here included)."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def stop_children() -> dict[int, str]:
+    """Stop every process this script started that still runs: the
+    multiprocessing resource tracker (which ignores SIGTERM) by closing its
+    pipe, every other descendant by SIGTERM, then SIGKILL after
+    STOP_GRACE_S; reap them. Returns those that were running."""
+    from multiprocessing import resource_tracker
+
+    tracker = resource_tracker._resource_tracker
+    left = _descendants()
+    if getattr(tracker, "_pid", None) is not None and hasattr(tracker, "_stop"):
+        tracker._stop()
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        running = _descendants()
+        for pid in running:
+            with contextlib.suppress(ProcessLookupError, PermissionError):
+                os.kill(pid, sig)
+        deadline = time.monotonic() + STOP_GRACE_S
+        while running and time.monotonic() < deadline:
+            _reap()
+            running = _descendants()
+            time.sleep(0.05)
+        if not running:
+            break
+    _reap()
+    return left
+
+
+def _stop_children_at_exit() -> None:
+    left = stop_children()
+    if left:
+        print(f"chip_smoke: stopped {len(left)} processes left running at exit: "
+              f"{sorted(left.values())}", file=sys.stderr)
 
 
 def card_line() -> str:
@@ -4086,6 +4187,36 @@ def chain_roots_in_background():
     return tmp, future
 
 
+def chain_eager_stage_a(canon, env: dict, results: str, launches_log: str) -> None:
+    """Stage A on the eager mixed cell (CELL=eager --until A: a process of
+    the chain script that calls loop.main with fused=False), as a chain on that
+    cell starts, in the results root of phase 19's chain: it runs through
+    ``--stage-run eager``, launches no K1-K3 kernel (its line of
+    ``launches_log``, after the chain's stages and its second C), and ends
+    every epoch with a finite loss."""
+    eager_env = dict(env, CELL="eager")
+    ek = canon.knobs(eager_env)
+    out = _chain_run(["--results-root", results, "--until", "A"], eager_env)
+    argv_line = next((line for line in out.splitlines()
+                      if line.startswith(f"chain: [{ek['PFX']}A] ")), "")
+    if "--stage-run eager" not in argv_line:
+        fail(f"chain: stage A on the eager cell did not run through --stage-run: "
+             f"{argv_line!r}")
+    with open(launches_log) as f:
+        counts = [json.loads(line) for line in f][len(CHAIN_STAGES) + 1:]
+    if len(counts) != 1 or any(counts[0].values()):
+        fail(f"chain: stage A on the eager cell launched {counts}")
+    with open(os.path.join(results, "logs", f"{ek['PFX']}A.log")) as f:
+        losses = [float(m.group(1)) for m in
+                  re.finditer(r"Loss: [\d.]+ \([\d.]+\) \(([\d.]+)\)", f.read())]
+    val = np.load(os.path.join(canon.run_folder(results, "A", ek), "val.npz"))["balacc"]
+    if len(val) != int(ek["EPOCHS_A"]) or not losses or not np.all(np.isfinite(losses)):
+        fail(f"chain: stage A on the eager cell: {len(val)} val entries, losses {losses}")
+    print(f"chain: stage A on the eager cell ({ek['PFX']}chainA): no K1-K3 launch; "
+          f"epoch-mean losses {[round(v, 4) for v in losses]}; val meter "
+          f"{[round(float(v), 2) for v in val]}", flush=True)
+
+
 def chain_phase(F, kernel_rows: list[dict], card: str, roots) -> None:
     """The canonical chain A -> B -> C through its driver (each stage a
     train CLI process on the card) with its report, the chain again, and the matrix
@@ -4200,6 +4331,8 @@ def chain_phase(F, kernel_rows: list[dict], card: str, roots) -> None:
         print("chain: the second invocation skipped A and B, C resumed with nothing left "
               "(no launch)", flush=True)
 
+        chain_eager_stage_a(canon, env, results, launches_log)
+
         # The matrix over C's best, counted in this process.
         best = find_best_checkpoint(canon.run_folder(results, "C", k))
         for kern in F.KERNELS:
@@ -4280,6 +4413,9 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository",
               file=sys.stderr)
         return 2
+    adopt_orphans()
+    atexit.register(_stop_children_at_exit)
+    signal.signal(signal.SIGTERM, lambda signum, frame: sys.exit(128 + signum))
     from pathtracker_torch.data.pathtracker import render_batch
     from pathtracker_torch.eval import serve
     from pathtracker_torch.ops import _native
@@ -4338,6 +4474,11 @@ def main() -> int:
     kernel_rows += correlation_rows
     if any(row["launches"] <= 0 for row in kernel_rows):
         fail(f"a kernel was never launched on the main paths: {kernel_rows}")
+    left = stop_children()
+    print(f"processes: {len(left)} started by this script still ran at its end, "
+          f"stopped and reaped: {sorted(left.values())}", flush=True)
+    if _descendants():
+        fail(f"processes still run after they were stopped: {_descendants()}")
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

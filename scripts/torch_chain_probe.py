@@ -13,10 +13,13 @@ Each variant is a process of this script training the stage's command
 --fused-steps 12, 20,000 + 2,500 clips, C with its EMA) through
 ``train.loop.main``, all at once:
 
-  fused      --bf16: the K1-K3 kernels (the chain's own cell)
+  fused      --bf16: the K1-K3 kernels (the chain's default cell)
   eager      --bf16 on the eager mixed cell (``fused=False``), the cell
              the JAX package trained its chain on
   f32        without --bf16: the f32 eager cell
+
+(the cells of ``torch_reproduce_canonical.cell``, which the chain's CELL
+knob uses too)
   <v>+ckpt   starting from --ckpt's weights (e.g. the JAX package's
              checkpoint of the stage before, or its seeded init for A)
   <v>+sN     the model's init drawn from seed N (the data order stays
@@ -71,13 +74,7 @@ def _flags(stage: str, variant: str, epochs: int, ckpt: str | None,
         start = canon.best_checkpoint(canon.run_folder(results_root, PREVIOUS[stage], k))
     flags = canon.stage_flags(stage, k, os.path.join(OUT, stage, variant), start)
     flags[flags.index("--name") + 1] = f"probe_{variant}"
-    kwargs = {}
-    if base == "f32":
-        flags.remove("--bf16")
-    elif base == "eager":
-        kwargs["fused"] = False
-    elif base != "fused":
-        raise ValueError(f"unknown variant {variant!r}")
+    flags, kwargs = canon.cell(base, flags)
     for mod in mods:
         if mod == "ckpt" and ckpt:
             flags += ["--ckpt", ckpt]

@@ -7,6 +7,9 @@ knobs and chain logic), and its report against the JAX package's records.
     python3 scripts/torch_reproduce_canonical.py --report   # the report alone
     python3 scripts/torch_reproduce_canonical.py --report --every-checkpoint
     python3 scripts/torch_reproduce_canonical.py --transfer  # B's checkpoints on C's shard
+    python3 scripts/torch_reproduce_canonical.py --transfer A  # A's on B's and C's shards
+    python3 scripts/torch_reproduce_canonical.py --until A   # stage A alone
+    CELL=eager python3 scripts/torch_reproduce_canonical.py  # on the eager mixed cell
     PATHTRACKER_TORCH_DEVICE=cpu EXTRA_FLAGS="-d 8 -k 3" ... # on the CPU, tiny
 
 Stages, each a ``python -m pathtracker_torch.train`` process on the card
@@ -17,6 +20,19 @@ Stages, each a ``python -m pathtracker_torch.train`` process on the card
   A  T=8,  dist 1,  cold start,        lr 2e-3, $EPOCHS_A (60) epochs
   B  T=32, dist 5,  from A's best,     lr 3e-4, $EPOCHS_B (40) epochs
   C  T=64, dist 14, from B's best,     lr 1e-4, $EPOCHS_C (400) epochs, --ema $EMA_C (0.998)
+
+The cell (``CELL``): ``fused`` (the default) trains on the K1-K3 kernels,
+each stage a ``python -m pathtracker_torch.train`` process as above;
+``eager`` trains InT on the eager mixed cell, the cell the JAX package
+trained its chain on (its ``fused`` is False and no JAX CLI flag sets it),
+each stage a process of this script (``--stage-run eager <flags>``) that
+calls ``train.loop.main(args, model_kwargs={"fused": False})``: the train
+CLI has no flag for the cell. ``cell`` maps a cell to its flags and model
+keywords for this script and scripts/torch_chain_probe.py alike. An eager
+chain's run folders, logs and eval folders carry ``eager_`` before their
+names, so chains of both cells stand side by side in one results root.
+
+``--until A|B`` stops the chain after that stage, without the report.
 
 A stage is done once its run folder has a best-val checkpoint; A and B are
 skipped then (unless ``FORCE_A=1`` / ``FORCE_B=1``). C always runs and
@@ -31,7 +47,7 @@ Knobs (environment, with reproduce_canonical.sh's defaults): MODEL (InT;
 another name prefixes the run folders, e.g. hgru_chainA), BATCH (128),
 SYNTH_TRAIN (20000), SYNTH_TEST (2500), FUSED_STEPS (12), EXTRA_FLAGS,
 EPOCHS_A/B/C (60/40/400), EMA_C (0.998), FORCE_A, FORCE_B,
-PATHTRACKER_DOT_SIZE (2). The roots: ``--data-root`` (default
+PATHTRACKER_DOT_SIZE (2), CELL (fused). The roots: ``--data-root`` (default
 $PATHTRACKER_DATA_ROOT, else build/chain/data; the registry renders each
 missing config there) and ``--results-root`` (default build/chain): run
 folders are ``<results-root>/results_conv/{L}_{S}_{D}/{PFX}chain{A,B,C}``,
@@ -49,7 +65,19 @@ clips past the last full batch drop); its accuracy and BCE are the seeded
 passes' mean, the same on every run; prints each beside the JAX records
 and the greedy bars; compares each stage's val curve
 with the JAX package's val.npz (the first epoch above 75% balanced
-accuracy, the best value and its epoch); and ends with one JSON line.
+accuracy, the best value and its epoch); names the stage-A checkpoint B
+started from (hp_dict.npz's ``loaded_ckpt``) with its epoch after A's
+escape (A's first epoch above 75%); and ends with one JSON line. The
+passes are decoded once a process and kept, so scoring many checkpoints
+decodes each shard once a loader seed.
+
+``--transfer`` scores every stage-B checkpoint, the chain's and the JAX
+package's, on C's held-out shard; ``--transfer A`` scores every stage-A
+checkpoint of the chain and the JAX package's chainA checkpoints from
+epoch 38 on (its last before the escape at 44, and each after) on B's
+shard (T=32, dist 5) and on C's (T=64, dist 14), each with its epoch after
+the escape, under loader seeds 0-2, and names the A checkpoint each B
+started from. Both print one line a checkpoint and end with one JSON line.
 """
 
 from __future__ import annotations
@@ -57,6 +85,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shlex
 import signal
 import subprocess
@@ -74,8 +103,8 @@ STAGES = {  # tag: (length, dist, lr, epochs knob and default)
     "C": (64, 14, "1e-4", ("EPOCHS_C", "400")),
 }
 SPEED = 1
-KNOBS = {"MODEL": "InT", "BATCH": "128", "SYNTH_TRAIN": "20000", "SYNTH_TEST": "2500",
-         "FUSED_STEPS": "12", "EXTRA_FLAGS": "", "EMA_C": "0.998"}
+KNOBS = {"MODEL": "InT", "CELL": "fused", "BATCH": "128", "SYNTH_TRAIN": "20000",
+         "SYNTH_TEST": "2500", "FUSED_STEPS": "12", "EXTRA_FLAGS": "", "EMA_C": "0.998"}
 YIELDED = "SIGTERM: finishing step"
 SEEDS = tuple(range(10))
 ABOVE = 75.0  # the val meter's mark of having left the chance plateau (percent)
@@ -84,6 +113,16 @@ ABOVE = 75.0  # the val meter's mark of having left the chance plateau (percent)
 # greedy nearest-neighbour bar on the same shard.
 JAX_CHAIN_B = os.path.join(ROOT, "results_conv", "32_1_5", "chainB", "saved_models",
                            "model_val_acc_0090_epoch_23_checkpoint.pth.tar")
+JAX_CHAIN_A = os.path.join(ROOT, "results_conv", "8_1_1", "chainA")
+# The JAX package's chainA checkpoints that --transfer A scores: its last
+# before the escape (epoch 44) and every one after.
+JAX_A_EPOCHS = (38, 44, 45, 46, 47, 49, 56, 59)
+# The cells a stage trains on: the flag each drops and the model keywords
+# it sets. The chain takes fused or eager; the probe also f32.
+CELLS = {"fused": (None, {}),                # --bf16 on the K1-K3 kernels (the default)
+         "eager": (None, {"fused": False}),  # --bf16 on the eager mixed cell (JAX's chain)
+         "f32": ("--bf16", {})}              # the eager cell in f32
+CHAIN_CELLS = ("fused", "eager")
 RECORDS = {
     "B": {"npz": os.path.join(ROOT, "results", "chainB",
                               "test_perf_dist_5_speed_1_length_32.npz"),
@@ -103,8 +142,23 @@ def knobs(env=None) -> dict:
     out = {k: env.get(k, v) for k, v in KNOBS.items()}
     for name, default in (knob for *_, knob in STAGES.values()):
         out[name] = env.get(name, default)
-    out["PFX"] = "" if out["MODEL"] == "InT" else f"{out['MODEL']}_"
+    if out["CELL"] not in CHAIN_CELLS:
+        raise ValueError(f"CELL={out['CELL']!r}: the chain trains on "
+                         f"{' or '.join(CHAIN_CELLS)}")
+    if out["CELL"] != "fused" and not out["MODEL"].startswith("InT"):
+        raise ValueError(f"CELL={out['CELL']} is InT's cell, not {out['MODEL']}'s")
+    out["PFX"] = (("" if out["MODEL"] == "InT" else f"{out['MODEL']}_")
+                  + ("" if out["CELL"] == "fused" else f"{out['CELL']}_"))
     return out
+
+
+def cell(name: str, flags: list[str]) -> tuple[list[str], dict]:
+    """A stage's ``flags`` on the cell ``name`` (a key of CELLS) and the
+    model keywords the cell sets."""
+    if name not in CELLS:
+        raise ValueError(f"unknown cell {name!r}; the cells are {sorted(CELLS)}")
+    drop, kwargs = CELLS[name]
+    return [f for f in flags if f != drop], dict(kwargs)
 
 
 def run_folder(results_root: str, tag: str, k: dict) -> str:
@@ -157,10 +211,16 @@ class _Forward:
         signal.signal(signal.SIGTERM, self.previous)
 
 
-def run_stage(name: str, flags: list[str], log: str, env: dict, forward: _Forward) -> bool:
-    """One stage as a process with its output in ``log``; whether the chain
+def run_stage(name: str, flags: list[str], log: str, env: dict, forward: _Forward,
+              cell_name: str = "fused") -> bool:
+    """One stage as a process with its output in ``log``: the train CLI on
+    the fused cell, else this script's ``--stage-run``; whether the chain
     goes on."""
-    argv = [sys.executable, "-u", "-m", "pathtracker_torch.train", *flags]
+    if cell_name == "fused":
+        argv = [sys.executable, "-u", "-m", "pathtracker_torch.train", *flags]
+    else:
+        argv = [sys.executable, "-u", os.path.abspath(__file__), "--stage-run", cell_name,
+                *flags]
     print(f"chain: [{name}] {shlex.join(argv)}", flush=True)
     t0 = time.perf_counter()
     with open(log, "w") as out:
@@ -182,15 +242,35 @@ def run_stage(name: str, flags: list[str], log: str, env: dict, forward: _Forwar
     return True
 
 
-def chain(results_root: str, env: dict) -> bool:
-    """The three stages as reproduce_canonical.sh runs them; whether all ran."""
+def stage_run(cell_name: str, flags: list[str]) -> int:
+    """One stage trained in this process on the cell ``cell_name``: the
+    train CLI's ``loop.main`` with the cell's model keywords; at exit the
+    kernel launch counts are appended to $PATHTRACKER_LAUNCHES, as the CLI
+    appends them."""
+    from pathtracker_torch.train import loop
+    from pathtracker_torch.train.__main__ import write_launches
+
+    flags, kwargs = cell(cell_name, flags)
+    args = loop.parser.parse_args(flags)
+    args.device = os.environ.get("PATHTRACKER_TORCH_DEVICE") or None
+    try:
+        loop.main(args, model_kwargs=kwargs)
+    finally:
+        if os.environ.get("PATHTRACKER_LAUNCHES"):
+            write_launches(os.environ["PATHTRACKER_LAUNCHES"])
+    return 0
+
+
+def chain(results_root: str, env: dict, until: str = "C") -> bool:
+    """The stages to ``until`` as reproduce_canonical.sh runs them; whether
+    all ran."""
     k = knobs(env)
     logs = os.path.join(results_root, "logs")
     os.makedirs(logs, exist_ok=True)
     forward = _Forward()
     try:
         previous = None
-        for tag in STAGES:
+        for tag in list(STAGES)[:list(STAGES).index(until) + 1]:
             folder = run_folder(results_root, tag, k)
             force = env.get(f"FORCE_{tag}", "0") == "1"
             if tag != "C" and stage_done(folder) and not force:
@@ -203,12 +283,13 @@ def chain(results_root: str, env: dict) -> bool:
                 log = os.path.join(logs, f"{k['PFX']}{tag}.log")
                 if forward.asked or not run_stage(
                         f"{k['PFX']}{tag}", stage_flags(tag, k, results_root, ckpt), log,
-                        env, forward):
+                        env, forward, k["CELL"]):
                     return False
             previous = folder
     finally:
         forward.close()
-    print("chain: done", flush=True)
+    print("chain: done" if until == "C" else f"chain: stopped after stage {until}",
+          flush=True)
     return True
 
 
@@ -259,12 +340,27 @@ def held_out(args, dist: int, length: int, folder: str) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+_PASSES: dict = {}  # (root, T, batch, seed): a seeded pass's batches, decoded once
+
+
+def _seeded_batches(root: str, timesteps: int, batch: int, seed: int) -> list:
+    """The batches of the held-out pass of ``root`` under loader seed
+    ``seed``, decoded once a process."""
+    from pathtracker_torch.data.pipeline import tfr_data_loader
+
+    key = (root, timesteps, batch, seed)
+    if key not in _PASSES:
+        loader = tfr_data_loader(os.path.join(root, "test-*"), batch_size=batch,
+                                 drop_remainder=True, timesteps=timesteps, seed=seed)
+        _PASSES[key] = [(np.array(clips), np.array(labels)) for clips, labels in loader]
+    return _PASSES[key]
+
+
 def seeded_passes(args, dist: int, length: int, seeds) -> dict:
     """``args.ckpt`` on the full held-out pass of the (dist, 1, length)
     root under each loader seed of ``seeds``: the mean accuracy and BCE and
     each pass's."""
     from pathtracker_torch import engine
-    from pathtracker_torch.data.pipeline import tfr_data_loader
     from pathtracker_torch.eval import test_model
 
     root, timesteps, _, _ = engine.dataset_selector(dist, SPEED, length)
@@ -272,9 +368,8 @@ def seeded_passes(args, dist: int, length: int, seeds) -> dict:
                              args.ckpt).eval()
     seeded = []
     for seed in seeds:
-        loader = tfr_data_loader(os.path.join(root, "test-*"), batch_size=args.batch_size,
-                                 drop_remainder=True, timesteps=timesteps, seed=seed)
-        accs, losses, _ = test_model.evaluate_batches(model, args.model, loader)
+        batches = _seeded_batches(root, timesteps, args.batch_size, seed)
+        accs, losses, _ = test_model.evaluate_batches(model, args.model, batches)
         seeded.append({"seed": seed, "acc": float(np.mean(accs)),
                        "loss": float(np.mean(losses)), "batches": len(accs)})
     return {"acc": float(np.mean([s["acc"] for s in seeded])),
@@ -305,6 +400,88 @@ def transfer(results_root: str, env: dict, seeds=SEEDS[:3]) -> dict:
     return out
 
 
+def _epoch(name: str) -> int | None:
+    """The epoch in a best-val checkpoint's name (None for the rolling one)."""
+    m = re.search(r"_epoch_(\d+)_", os.path.basename(name))
+    return int(m.group(1)) if m else None
+
+
+def checkpoints(folder: str, epochs=None) -> list[str]:
+    """The checkpoint files of a run folder (those of ``epochs`` only,
+    where given), by name."""
+    saved = os.path.join(folder, "saved_models")
+    names = sorted(n for n in (os.listdir(saved) if os.path.isdir(saved) else ())
+                   if n.endswith(".tar"))
+    return names if epochs is None else [n for n in names if _epoch(n) in epochs]
+
+
+def started_from(b_folder: str, a_folder: str) -> dict | None:
+    """The stage-A checkpoint a stage B started from (its hp_dict.npz's
+    ``loaded_ckpt``; where B has not run, the one it would start from), its
+    epoch, and that epoch after A's escape (A's first val epoch above
+    ABOVE)."""
+    hp = os.path.join(b_folder, "hp_dict.npz")
+    if os.path.exists(hp):
+        ckpt, ran = str(np.load(hp)["loaded_ckpt"]), True
+    elif stage_done(a_folder):
+        ckpt, ran = best_checkpoint(a_folder), False
+    else:
+        return None
+    escape = (curve(os.path.join(a_folder, "val.npz")) or {}).get("first_above_75")
+    epoch = _epoch(ckpt)
+    return {"ckpt": os.path.basename(ckpt), "b_ran": ran, "epoch": epoch,
+            "escape": escape, "after_escape": None if None in (epoch, escape)
+            else epoch - escape}
+
+
+def _describe_start(s: dict | None) -> str:
+    if s is None:
+        return "none (A has no checkpoint)"
+    after = ("A never left the plateau" if s["escape"] is None
+             else f"{s['after_escape']} epochs after A's escape at epoch {s['escape']}")
+    return (f"{'started' if s['b_ran'] else 'would start'} from {s['ckpt']} "
+            f"(epoch {s['epoch']}, {after})")
+
+
+def transfer_a(results_root: str, env: dict, seeds=SEEDS[:3]) -> dict:
+    """Every stage-A checkpoint of the chain and the JAX package's chainA
+    checkpoints at JAX_A_EPOCHS, scored on B's held-out shard (T=32, dist 5)
+    and on C's (T=64, dist 14) before any step there, each with its epoch
+    after the escape; and the A checkpoint each B started from."""
+    k = knobs(env)
+    device = env.get("PATHTRACKER_TORCH_DEVICE") or None
+    out = {}
+    for who, a_folder, b_folder in (
+            ("port", run_folder(results_root, "A", k), run_folder(results_root, "B", k)),
+            ("jax", JAX_CHAIN_A, os.path.dirname(JAX_CURVES["B"]))):
+        c = curve(os.path.join(a_folder, "val.npz"))
+        escape = c and c["first_above_75"]
+        saved = os.path.join(a_folder, "saved_models")
+        rows = {}
+        for name in checkpoints(a_folder, JAX_A_EPOCHS if who == "jax" else None):
+            epoch = _epoch(name)
+            if epoch is None and c is not None:  # the rolling checkpoint: the last epoch
+                epoch = c["epochs"] - 1
+            row = {"epoch": epoch, "after_escape": None if None in (epoch, escape)
+                   else epoch - escape}
+            for tag in ("B", "C"):
+                length, dist, _, _ = STAGES[tag]
+                args = _eval_args(k, results_root, tag, device, os.path.join(saved, name))
+                if who == "jax":
+                    args.model, args.dimensions, args.fb_kernel_size = "InT", 32, 7
+                row[tag] = seeded_passes(args, dist, length, seeds)
+            rows[name] = row
+            print(f"report: transfer A [{who}] {name} (epoch {epoch}, "
+                  f"{row['after_escape']} after the escape): B's shard "
+                  f"{_pct(row['B']['acc'])} / {row['B']['loss']:.4f} BCE, C's shard "
+                  f"{_pct(row['C']['acc'])} / {row['C']['loss']:.4f} BCE (means of "
+                  f"{len(seeds)} seeded passes)", flush=True)
+        start = started_from(b_folder, a_folder)
+        print(f"report: transfer A [{who}] B {_describe_start(start)}", flush=True)
+        out[who] = {"escape": escape, "checkpoints": rows, "b_started_from": start}
+    return out
+
+
 def _card() -> str | None:
     try:
         return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -326,8 +503,9 @@ def report(results_root: str, env: dict, every: bool = False) -> dict:
     k = knobs(env)
     device = env.get("PATHTRACKER_TORCH_DEVICE") or None
     out = {"card": _card(), "device": device or "cuda", "stages": {}, "knobs": {
-        n: k[n] for n in ("MODEL", "BATCH", "SYNTH_TRAIN", "SYNTH_TEST", "FUSED_STEPS",
-                          "EXTRA_FLAGS", "EPOCHS_A", "EPOCHS_B", "EPOCHS_C", "EMA_C")}}
+        n: k[n] for n in ("MODEL", "CELL", "BATCH", "SYNTH_TRAIN", "SYNTH_TEST",
+                          "FUSED_STEPS", "EXTRA_FLAGS", "EPOCHS_A", "EPOCHS_B", "EPOCHS_C",
+                          "EMA_C")}}
     print(f"report: card {out['card'] or 'none'}, device {out['device']}", flush=True)
     evals = os.path.join(results_root, "results")
     for tag, (length, dist, _, _) in STAGES.items():
@@ -355,6 +533,9 @@ def report(results_root: str, env: dict, every: bool = False) -> dict:
                     print(f"report: [{tag}] {name}: {_pct(got['acc'])} / {got['loss']:.4f} "
                           f"BCE held-out (seeded mean; unseeded "
                           f"{_pct(got['unseeded']['acc'])})", flush=True)
+        if tag == "B":
+            row["started_from"] = started_from(folder, run_folder(results_root, "A", k))
+            print(f"report: [B] {_describe_start(row['started_from'])}", flush=True)
         out["stages"][tag] = row
     jax_args = _eval_args(k, results_root, "B", device, JAX_CHAIN_B)
     jax_args.model, jax_args.dimensions, jax_args.fb_kernel_size = "InT", 32, 7
@@ -399,14 +580,20 @@ def report(results_root: str, env: dict, every: bool = False) -> dict:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--stage-run"]:  # one stage of an eager chain (run_stage)
+        return stage_run(argv[1], argv[2:])
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--report", action="store_true",
                    help="run the report alone (the chain runs it at its end)")
     p.add_argument("--every-checkpoint", action="store_true",
                    help="the report also scores B's and C's other checkpoints")
-    p.add_argument("--transfer", action="store_true",
-                   help="instead of the report, score every stage-B checkpoint, the "
-                        "chain's and the JAX package's, on stage C's shard")
+    p.add_argument("--transfer", nargs="?", const="B", choices=("A", "B"),
+                   help="instead of the report, score every checkpoint of the stage "
+                        "(default B), the chain's and the JAX package's, on the shards of "
+                        "the stages after it")
+    p.add_argument("--until", default="C", choices=tuple(STAGES),
+                   help="stop the chain after this stage, without the report")
     p.add_argument("--data-root", default=None,
                    help="where the configs are rendered (default $PATHTRACKER_DATA_ROOT, "
                         "else build/chain/data)")
@@ -423,10 +610,15 @@ def main(argv=None) -> int:
     os.environ["PATHTRACKER_SYNTH_TRAIN"] = k["SYNTH_TRAIN"]
     os.environ["PATHTRACKER_SYNTH_TEST"] = k["SYNTH_TEST"]
     env = dict(os.environ)
-    if not (a.report or a.transfer) and not chain(results_root, env):
+    if not (a.report or a.transfer) and not chain(results_root, env, a.until):
         return 1
+    if a.transfer == "A":
+        print(json.dumps({"transfer_a": transfer_a(results_root, env)}), flush=True)
+        return 0
     if a.transfer:
         print(json.dumps({"transfer": transfer(results_root, env)}), flush=True)
+        return 0
+    if a.until != "C" and not a.report:
         return 0
     print(json.dumps(report(results_root, env, a.every_checkpoint)), flush=True)
     return 0

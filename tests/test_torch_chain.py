@@ -379,3 +379,176 @@ def test_stage_steps_from_the_jax_chain_match_jax(tag, tmp_path):
             cos = moved[0] @ moved[1] / np.linalg.norm(moved[0]) / np.linalg.norm(moved[1])
             ratio = np.linalg.norm(moved[0]) / np.linalg.norm(moved[1])
             assert cos >= COS_MIN and abs(ratio - 1.0) <= NORM_RTOL, (i, what, cos, ratio)
+
+
+# ------------------------------ cells, --transfer A --------------------------
+
+import torch_chain_probe as probe  # noqa: E402
+
+CELL_KNOBS = {"BATCH": "4", "SYNTH_TRAIN": "8", "SYNTH_TEST": "4", "FUSED_STEPS": "2",
+              "EPOCHS_A": "1", "EPOCHS_B": "1", "EPOCHS_C": "1",
+              "EXTRA_FLAGS": "-d 32 -k 3"}  # 32 channels: the width the kernels take
+
+
+def test_eager_cell_builds_int_without_the_kernels_in_every_stage(tmp_path, monkeypatch):
+    """Each stage of a CELL=eager chain, as its stage process runs it
+    (``stage_run``), builds InT with ``use_fused`` False; the same stage on
+    the fused cell builds it with ``use_fused`` True."""
+    monkeypatch.setenv("PATHTRACKER_DATA_ROOT", str(tmp_path / "data"))
+    monkeypatch.setenv("PATHTRACKER_DOT_SIZE", "2")
+    monkeypatch.setenv("PATHTRACKER_TORCH_DEVICE", "cpu")
+    monkeypatch.delenv("PATHTRACKER_LAUNCHES", raising=False)
+    built = []
+    real = tloop.init_model
+
+    def spy(*a, **kw):
+        model = real(*a, **kw)
+        built.append((type(model).__name__, model.use_fused, kw))
+        return model
+
+    monkeypatch.setattr(tloop, "init_model", spy)
+    results = str(tmp_path / "results")
+    for cell_name in ("eager", "fused"):
+        k = canon.knobs(dict(CELL_KNOBS, CELL=cell_name))
+        previous = None
+        for tag in (TAGS if cell_name == "eager" else "A"):
+            ckpt = canon.best_checkpoint(previous) if previous else None
+            assert canon.stage_run(cell_name, canon.stage_flags(tag, k, results, ckpt)) == 0
+            previous = canon.run_folder(results, tag, k)
+            assert canon.stage_done(previous)
+    assert [b[:2] for b in built] == [("InT", False)] * 3 + [("InT", True)]
+    assert [b[2].get("fused") for b in built] == [False] * 3 + [None]
+    assert os.path.basename(canon.run_folder(results, "C", canon.knobs({"CELL": "eager"}))) \
+        == "eager_chainC"
+
+
+def test_eager_chain_runs_its_stages_through_the_stage_runner(tmp_path):
+    """CELL=eager: the chain script runs a stage as a process of itself
+    (``--stage-run eager`` and the stage's flags: the train CLI has no flag
+    for the cell), its run folder, log and name carry ``eager_``, and
+    ``--until A`` stops after A without the report."""
+    env = dict(_env(), CELL="eager")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "scripts", "torch_reproduce_canonical.py"),
+         "--data-root", str(tmp_path / "data"), "--results-root", str(tmp_path / "results"),
+         "--until", "A"],
+        env=env, cwd=str(tmp_path), capture_output=True, text=True, timeout=TIMEOUT)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    line = next(x for x in proc.stdout.splitlines() if x.startswith("chain: [eager_A] /"))
+    argv = shlex.split(line.split("] ", 1)[1])
+    assert argv[1:4] == ["-u", os.path.join(ROOT, "scripts", "torch_reproduce_canonical.py"),
+                         "--stage-run"]
+    k = canon.knobs(env)
+    assert argv[4:] == ["eager", *canon.stage_flags("A", k, str(tmp_path / "results"))]
+    assert "--name" in argv and argv[argv.index("--name") + 1] == "eager_chainA"
+    assert proc.stdout.strip().splitlines()[-1] == "chain: stopped after stage A"
+    assert canon.stage_done(canon.run_folder(str(tmp_path / "results"), "A", k))
+    assert os.path.exists(tmp_path / "results" / "logs" / "eager_A.log")
+    assert not os.path.exists(canon.run_folder(str(tmp_path / "results"), "B", k))
+
+
+def test_probe_and_chain_share_the_cells(tmp_path):
+    """The probe's variants take their flags and model keywords from the
+    chain's ``cell``: eager is ``fused=False`` with --bf16 in both, f32
+    drops --bf16, fused sets nothing; the chain takes fused or eager."""
+    for base, kwargs, bf16 in (("fused", {}, True), ("eager", {"fused": False}, True),
+                               ("f32", {}, False)):
+        flags, got = probe._flags("A", base, 1, None, str(tmp_path))
+        assert got == kwargs and ("--bf16" in flags) == bf16, base
+        want = canon.stage_flags("A", dict(canon.knobs(), EPOCHS_A="1"),
+                                 os.path.join(probe.OUT, "A", base))
+        want[want.index("--name") + 1] = f"probe_{base}"
+        assert (flags, got) == canon.cell(base, want)
+        flags, got = probe._flags("A", f"{base}+s2", 1, None, str(tmp_path))
+        assert got == dict(kwargs, seed=2)
+    assert canon.cell("eager", ["--bf16"]) == (["--bf16"], {"fused": False})
+    assert canon.knobs({"CELL": "eager"})["PFX"] == "eager_"
+    assert canon.knobs({})["PFX"] == "" and canon.knobs({})["CELL"] == "fused"
+    for bad in ({"CELL": "f32"}, {"CELL": "nope"}, {"CELL": "eager", "MODEL": "hgru"}):
+        with pytest.raises(ValueError):
+            canon.knobs(bad)
+    with pytest.raises(ValueError):
+        probe._flags("A", "nope", 1, None, str(tmp_path))
+
+
+def test_transfer_a_takes_the_jax_chain_a_from_its_last_plateau_epoch():
+    names = canon.checkpoints(canon.JAX_CHAIN_A, canon.JAX_A_EPOCHS)
+    assert [canon._epoch(n) for n in names] == [38, 44, 45, 46, 47, 49, 56, 59]
+    assert canon.curve(os.path.join(canon.JAX_CHAIN_A, "val.npz"))["first_above_75"] == 44
+
+
+def test_transfer_a_scores_every_a_checkpoint_on_both_shards(chain, monkeypatch):
+    """``--transfer A`` over the chain: every stage-A checkpoint of the
+    chain (its best-val ones and the rolling one) and the JAX package's
+    chainA checkpoints (here two of JAX_A_EPOCHS, for time) each scored on
+    B's and C's held-out shards under loader seeds 0-2, with its epoch
+    after the escape; and the A checkpoint each B started from, as B's
+    hp_dict.npz names it (the JAX package's chainB: A's epoch 59, 15
+    epochs after its escape at 44). The report names B's start too."""
+    import json
+
+    monkeypatch.setattr(canon, "JAX_A_EPOCHS", (44, 59))
+    roots = chain["roots"]
+    # The scripts read the data root from the environment, as their main() sets it.
+    for name, value in (("PATHTRACKER_DATA_ROOT", roots["data"]), ("PATHTRACKER_DOT_SIZE", "2"),
+                        ("PATHTRACKER_SYNTH_TRAIN", KNOBS["SYNTH_TRAIN"]),
+                        ("PATHTRACKER_SYNTH_TEST", KNOBS["SYNTH_TEST"])):
+        monkeypatch.setenv(name, value)
+    env = dict(os.environ, **_env())
+    before = _snapshot()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        got = canon.transfer_a(roots["results"], env)
+    k = canon.knobs(KNOBS)
+    saved = os.path.join(canon.run_folder(roots["results"], "A", k), "saved_models")
+    assert sorted(got["port"]["checkpoints"]) == sorted(os.listdir(saved))
+    assert sorted(got["jax"]["checkpoints"]) == [
+        "model_val_acc_0089_epoch_44_checkpoint.pth.tar",
+        "model_val_acc_0099_epoch_59_checkpoint.pth.tar"]
+    for who in ("port", "jax"):
+        for name, row in got[who]["checkpoints"].items():
+            for tag in ("B", "C"):
+                assert [s["seed"] for s in row[tag]["seeded"]] == [0, 1, 2], (who, name)
+                assert 0.0 <= row[tag]["acc"] <= 1.0 and np.isfinite(row[tag]["loss"])
+            assert f"report: transfer A [{who}] {name} (epoch {row['epoch']}," in out.getvalue()
+    assert got["jax"]["checkpoints"]["model_val_acc_0099_epoch_59_checkpoint.pth.tar"][
+        "after_escape"] == 15
+    assert got["jax"]["b_started_from"] == {
+        "ckpt": "model_val_acc_0099_epoch_59_checkpoint.pth.tar", "b_ran": True, "epoch": 59,
+        "escape": 44, "after_escape": 15}
+    start = got["port"]["b_started_from"]
+    assert start["b_ran"] and start["ckpt"] == os.path.basename(chain["hp"]["B"]["loaded_ckpt"])
+    assert start["epoch"] == 0 and start["ckpt"] in got["port"]["checkpoints"]
+    assert f"report: transfer A [port] B started from {start['ckpt']}" in out.getvalue()
+    report = json.loads(chain["first"].strip().splitlines()[-1])
+    assert report["stages"]["B"]["started_from"] == start
+    assert _snapshot() == before
+
+
+@pytest.mark.parametrize("chain_dir", sorted(
+    d for d in os.listdir(os.path.join(ROOT, "results_torch")) if d.startswith("chain_"))
+    if os.path.isdir(os.path.join(ROOT, "results_torch")) else [])
+def test_kept_card_chains_are_what_the_report_reads(chain_dir):
+    """A chain kept from the card (results_torch/chain_<cell>_<n>: stage
+    logs, npz logs, each stage's best-val checkpoint) reads as a finished
+    chain of its cell: every stage done with its full val curve, its best
+    checkpoint the one kept, and each B and C started from the checkpoint
+    kept in the stage before."""
+    results = os.path.join(ROOT, "results_torch", chain_dir)
+    k = canon.knobs({"CELL": chain_dir.split("_")[1]})
+    kept = {}
+    for tag in TAGS:
+        folder = canon.run_folder(results, tag, k)
+        assert canon.stage_done(folder), folder
+        epochs = int(np.load(os.path.join(folder, "hp_dict.npz"))["epochs"])
+        assert epochs == int(k[canon.STAGES[tag][3][0]]) or tag == "C"  # C's cut to fit the card
+        assert canon.curve(os.path.join(folder, "val.npz"))["epochs"] == epochs
+        names = canon.checkpoints(folder)
+        assert len(names) == 1 and canon.best_checkpoint(folder).endswith(names[0])
+        assert os.path.exists(os.path.join(results, "logs", f"{k['PFX']}{tag}.log"))
+        kept[tag] = names[0]
+    start = canon.started_from(canon.run_folder(results, "B", k),
+                               canon.run_folder(results, "A", k))
+    assert start["b_ran"] and start["ckpt"] == kept["A"] and start["after_escape"] >= 0
+    loaded = np.load(os.path.join(canon.run_folder(results, "C", k), "hp_dict.npz"))
+    assert os.path.basename(str(loaded["loaded_ckpt"])) == kept["B"]

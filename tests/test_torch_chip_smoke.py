@@ -290,3 +290,60 @@ def test_model_parallel_phase_holds_the_kernels_at_the_ranks_shapes():
     assert chip_smoke.MP_INT_BATCH * (side // ranks) * side \
         == chip_smoke.MP_INT_BATCH // ranks * side * side
     assert phase.index("loop_shape_kernel_check(") < phase.index("_as_model_ranks(")
+
+
+STOP_SCRIPT = """\
+import json, multiprocessing, os, subprocess, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+
+chip_smoke.adopt_orphans()
+# A child that ends at once and leaves a grandchild running: re-parented here.
+out = subprocess.run(["sh", "-c", "sleep 300 >/dev/null 2>&1 & echo $!"],
+                     capture_output=True, text=True, check=True).stdout
+orphan = int(out)
+with open(f"/proc/{orphan}/stat") as f:
+    stat = f.read()
+ppid = int(stat[stat.rindex(")") + 2:].split()[1])
+# A spawn context's queue starts multiprocessing's resource tracker, which
+# ignores SIGTERM and outlives no pipe.
+queue = multiprocessing.get_context("spawn").SimpleQueue()
+from multiprocessing import resource_tracker
+tracker = resource_tracker._resource_tracker._pid
+left = chip_smoke.stop_children()
+print(json.dumps({"me": os.getpid(), "orphan": orphan, "ppid": ppid, "tracker": tracker,
+                  "left": sorted(left), "after": sorted(chip_smoke._descendants()),
+                  "orphan_gone": not os.path.exists(f"/proc/{orphan}")}))
+"""
+
+
+def test_stop_children_stops_orphans_and_the_resource_tracker(tmp_path):
+    """What the script started and still runs at its end is stopped and
+    reaped: a grandchild whose parent ended (found because the script is
+    its subreaper) and the resource tracker a spawn pool starts."""
+    import json
+    import subprocess
+
+    script = tmp_path / "stop.py"
+    script.write_text(STOP_SCRIPT)
+    proc = subprocess.run([sys.executable, str(script), ROOT], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["ppid"] == got["me"]
+    assert got["tracker"] is not None
+    assert {got["orphan"], got["tracker"]} <= set(got["left"])
+    assert got["after"] == [] and got["orphan_gone"]
+
+
+def test_main_stops_its_processes_before_the_kernels_line():
+    """main makes the script its descendants' subreaper before it starts
+    anything, stops them at exit, and stops and counts those left before
+    the kernels line."""
+    import inspect
+
+    main = inspect.getsource(chip_smoke.main)
+    order = [main.index(call) for call in (
+        "adopt_orphans()", "atexit.register(_stop_children_at_exit)", "card_line()",
+        "chain_phase(", "stop_children()", '{"kernels"')]
+    assert order == sorted(order)

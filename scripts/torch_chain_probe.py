@@ -6,7 +6,8 @@ starting weights decide where the stage goes.
 
     python3 scripts/torch_chain_probe.py [--stage A|B|C] [--epochs N]
         [--ckpt START] [--variants fused,eager,f32,fused+ckpt,fused+s1,...]
-        [--results-root build/chain] [--transfer]
+        [--results-root build/chain] [--transfer] [--heldout] [--out build/chain_probe]
+        [--score-only]
 
 Each variant is a process of this script training the stage's command
 (``torch_reproduce_canonical.stage_flags``: batch 128, --device-data
@@ -37,10 +38,18 @@ same: data/prng.py draws JAX's permutation, and the renderer is
 byte-equal, so from the same weights the losses start equal). Then each
 variant's seconds, with --transfer (stage B) each variant's best-val
 checkpoints scored on stage C's held-out shard (loader seeds 0-2), as
-``torch_reproduce_canonical.py --transfer`` scores the chain's, and one
-JSON line. The runs go under
-build/chain_probe/<stage>/ (the data root is $PATHTRACKER_DATA_ROOT, else
-build/chain/data).
+``torch_reproduce_canonical.py --transfer`` scores the chain's, with
+--heldout every best-val checkpoint of each variant (``model_val_acc_*``,
+the best-val one marked) scored on the stage's own held-out shard under
+the report's ten loader seeds, beside the JAX package's held-out record of
+its own checkpoint at the same epoch where there is one
+(``torch_reproduce_canonical.jax_records``), and one JSON line. The runs
+go under <out>/<stage>/ (default build/chain_probe; the data root is
+$PATHTRACKER_DATA_ROOT, else build/chain/data). --score-only, a recovery
+tool for a run that was cut short (its folder copied back under <out>),
+trains nothing and compares and scores the runs already there; their
+exit code and seconds read null. --heldout takes a run's best-val
+checkpoint from val.npz's best epoch, not from the files' times.
 """
 
 from __future__ import annotations
@@ -65,14 +74,14 @@ PREVIOUS = {"B": "A", "C": "B"}
 
 
 def _flags(stage: str, variant: str, epochs: int, ckpt: str | None,
-           results_root: str) -> tuple[list[str], dict]:
+           results_root: str, out: str = OUT) -> tuple[list[str], dict]:
     """The stage's flags for ``variant`` and the model keywords it sets."""
     base, *mods = variant.split("+")
     k = dict(canon.knobs(), **{canon.STAGES[stage][3][0]: str(epochs)})
     start = None
     if stage in PREVIOUS and "ckpt" not in mods:
         start = canon.best_checkpoint(canon.run_folder(results_root, PREVIOUS[stage], k))
-    flags = canon.stage_flags(stage, k, os.path.join(OUT, stage, variant), start)
+    flags = canon.stage_flags(stage, k, os.path.join(out, stage, variant), start)
     flags[flags.index("--name") + 1] = f"probe_{variant}"
     flags, kwargs = canon.cell(base, flags)
     for mod in mods:
@@ -85,11 +94,12 @@ def _flags(stage: str, variant: str, epochs: int, ckpt: str | None,
     return flags, kwargs
 
 
-def run(stage: str, variant: str, epochs: int, ckpt: str | None, results_root: str) -> int:
+def run(stage: str, variant: str, epochs: int, ckpt: str | None, results_root: str,
+        out: str = OUT) -> int:
     """One variant in this process."""
     from pathtracker_torch.train import loop
 
-    flags, kwargs = _flags(stage, variant, epochs, ckpt, results_root)
+    flags, kwargs = _flags(stage, variant, epochs, ckpt, results_root, out)
     args = loop.parser.parse_args(flags)
     args.device = os.environ.get("PATHTRACKER_TORCH_DEVICE") or None
     loop.main(args, model_kwargs=kwargs)
@@ -114,6 +124,32 @@ def compare(folder: str, jax_folder: str) -> dict | None:
             "gap_to_jax_first_epoch": float(np.abs(train[:first] - jax_train[:first]).mean())}
 
 
+def heldout(stage: str, folder: str, k: dict, results_root: str) -> dict:
+    """Every best-val checkpoint of the run ``folder`` on the stage's own
+    held-out shard under all of the report's loader seeds (its seeded
+    passes), each with its epoch and the JAX package's record at that
+    epoch; which one is the best-val checkpoint, the one saved at val.npz's
+    best epoch (the next stage loads it: checkpoints are saved only when
+    the val meter improves)."""
+    length, dist, _, _ = canon.STAGES[stage]
+    records = canon.jax_records(stage)
+    saved = os.path.join(folder, "saved_models")
+    names = sorted((n for n in (os.listdir(saved) if os.path.isdir(saved) else ())
+                    if n.startswith("model_val_acc_")), key=canon._epoch)
+    best_epoch = (int(np.argmax(np.load(os.path.join(folder, "val.npz"))["balacc"]))
+                  if names else None)
+    out = {"best": next((n for n in names if canon._epoch(n) == best_epoch), None),
+           "checkpoints": {}}
+    device = os.environ.get("PATHTRACKER_TORCH_DEVICE") or None
+    for name in names:
+        args = canon._eval_args(k, results_root, stage, device, os.path.join(saved, name))
+        got = canon.seeded_passes(args, dist, length, canon.SEEDS)
+        epoch = canon._epoch(name)
+        got.update(epoch=epoch, record=records.get(epoch))
+        out["checkpoints"][name] = got
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--stage", default="A", choices=sorted(canon.STAGES))
@@ -125,15 +161,22 @@ def main(argv=None) -> int:
                    help="the chain whose previous stage B and C start from")
     p.add_argument("--transfer", action="store_true",
                    help="stage B: then score each variant's checkpoints on stage C's shard")
+    p.add_argument("--heldout", action="store_true",
+                   help="then score each variant's best-val checkpoints on the stage's own "
+                        "held-out shard under the report's ten loader seeds")
+    p.add_argument("--out", default=OUT, help="where the variants' runs go")
+    p.add_argument("--score-only", action="store_true",
+                   help="recovery: train nothing, compare and score the variants' runs "
+                        "already in --out")
     p.add_argument("--run", default=None, help=argparse.SUPPRESS)
     a = p.parse_args(argv)
     os.environ.setdefault("PATHTRACKER_DATA_ROOT", os.path.join(ROOT, "build", "chain", "data"))
     os.environ.setdefault("PATHTRACKER_DOT_SIZE", "2")
     k = canon.knobs()
     epochs = a.epochs or int(k[canon.STAGES[a.stage][3][0]])
-    results_root = os.path.abspath(a.results_root)
+    results_root, out_root = os.path.abspath(a.results_root), os.path.abspath(a.out)
     if a.run:
-        return run(a.stage, a.run, epochs, a.ckpt, results_root)
+        return run(a.stage, a.run, epochs, a.ckpt, results_root, out_root)
 
     from pathtracker_torch import engine
 
@@ -145,15 +188,17 @@ def main(argv=None) -> int:
           flush=True)
     variants = [v.strip() for v in a.variants.split(",") if v.strip()]
     for v in variants:  # refuse a bad name before starting any
-        print(f"probe: [{v}] {' '.join(_flags(a.stage, v, epochs, a.ckpt, results_root)[0])}",
+        print(f"probe: [{v}] "
+              f"{' '.join(_flags(a.stage, v, epochs, a.ckpt, results_root, out_root)[0])}",
               flush=True)
-    out_dir = os.path.join(OUT, a.stage)
+    out_dir = os.path.join(out_root, a.stage)
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for v in variants:
+    for v in variants if not a.score_only else ():
         log = open(os.path.join(out_dir, f"{v}.log"), "w")
         cmd = [sys.executable, "-u", os.path.abspath(__file__), "--run", v, "--stage",
-               a.stage, "--epochs", str(epochs), "--results-root", results_root]
+               a.stage, "--epochs", str(epochs), "--results-root", results_root,
+               "--out", out_root]
         procs[v] = (subprocess.Popen(cmd + (["--ckpt", a.ckpt] if a.ckpt else []),
                                      stdout=log, stderr=subprocess.STDOUT, cwd=ROOT),
                     log, time.perf_counter())
@@ -167,15 +212,19 @@ def main(argv=None) -> int:
         "first_losses": [round(float(x), 4) for x in jax[:8]]}, "variants": {}}
     print(f"probe: JAX chain{a.stage}: val meter {out['jax']['val']}; train loss an epoch "
           f"{out['jax']['train_loss']}; first steps {out['jax']['first_losses']}", flush=True)
-    for v, (proc, log, start) in procs.items():
-        rc = proc.wait()
-        log.close()
-        seconds = time.perf_counter() - start
-        folder = os.path.join(OUT, a.stage, v, "results_conv",
-                              f"{length}_{canon.SPEED}_{dist}", f"probe_{v}")
+    for v in variants:
+        rc, seconds = None, None  # --score-only: no process ran
+        if v in procs:
+            proc, log, start = procs[v]
+            rc = proc.wait()
+            log.close()
+            seconds = time.perf_counter() - start
+        folder = os.path.join(out_dir, v, "results_conv", f"{length}_{canon.SPEED}_{dist}",
+                              f"probe_{v}")
         row = compare(folder, jax_folder)
         out["variants"][v] = {"rc": rc, "seconds": seconds, **(row or {})}
-        print(f"probe: [{v}] exit {rc} after {seconds:.1f} s; " + (
+        print((f"probe: [{v}] exit {rc} after {seconds:.1f} s; " if v in procs else
+               f"probe: [{v}] not run (--score-only); ") + (
             "no epoch" if row is None else
             f"val meter first above {canon.ABOVE:g}% at epoch {row['curve']['first_above_75']}, "
             f"best {row['curve']['best']:.2f}% at epoch {row['curve']['best_epoch']}: "
@@ -185,8 +234,8 @@ def main(argv=None) -> int:
     if a.transfer and a.stage == "B":
         c_length, c_dist, _, _ = canon.STAGES["C"]
         for v, row in out["variants"].items():
-            saved = os.path.join(OUT, a.stage, v, "results_conv",
-                                 f"{length}_{canon.SPEED}_{dist}", f"probe_{v}", "saved_models")
+            saved = os.path.join(out_dir, v, "results_conv", f"{length}_{canon.SPEED}_{dist}",
+                                 f"probe_{v}", "saved_models")
             for name in sorted(os.listdir(saved)) if os.path.isdir(saved) else ():
                 if not name.startswith("model_val_acc_"):
                     continue
@@ -196,8 +245,20 @@ def main(argv=None) -> int:
                 row.setdefault("transfer", {})[name] = got
                 print(f"probe: transfer [{v}] {name} on C's shard: {100 * got['acc']:.2f}% / "
                       f"{got['loss']:.4f} BCE (mean of 3 seeded passes)", flush=True)
+    for v, row in out["variants"].items() if a.heldout else ():
+        folder = os.path.join(out_dir, v, "results_conv", f"{length}_{canon.SPEED}_{dist}",
+                              f"probe_{v}")
+        row["heldout"] = got = heldout(a.stage, folder, k, results_root)
+        for name, s in got["checkpoints"].items():
+            r = s["record"]
+            print(f"probe: held-out [{v}] epoch {s['epoch']}"
+                  f"{' (best-val)' if name == got['best'] else ''}: {100 * s['acc']:.2f}% / "
+                  f"{s['loss']:.4f} BCE (mean of {len(s['seeded'])} seeded passes); JAX "
+                  f"chain{a.stage} at epoch {s['epoch']}: " + (
+                      "no record" if r is None else
+                      f"{100 * r['acc']:.2f}% / {r['loss']:.4f} BCE"), flush=True)
     print(json.dumps(out), flush=True)
-    return 0 if all(r["rc"] == 0 for r in out["variants"].values()) else 1
+    return 0 if all(r["rc"] in (0, None) for r in out["variants"].values()) else 1
 
 
 if __name__ == "__main__":

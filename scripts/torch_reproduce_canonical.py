@@ -6,9 +6,11 @@ knobs and chain logic), and its report against the JAX package's records.
     python3 scripts/torch_reproduce_canonical.py            # the chain, then the report
     python3 scripts/torch_reproduce_canonical.py --report   # the report alone
     python3 scripts/torch_reproduce_canonical.py --report --every-checkpoint
+    python3 scripts/torch_reproduce_canonical.py --report --jax-curve C  # JAX's C, each epoch
     python3 scripts/torch_reproduce_canonical.py --transfer  # B's checkpoints on C's shard
     python3 scripts/torch_reproduce_canonical.py --transfer A  # A's on B's and C's shards
     python3 scripts/torch_reproduce_canonical.py --until A   # stage A alone
+    python3 scripts/torch_reproduce_canonical.py --until C   # the chain, no report
     CELL=eager python3 scripts/torch_reproduce_canonical.py  # on the eager mixed cell
     PATHTRACKER_TORCH_DEVICE=cpu EXTRA_FLAGS="-d 8 -k 3" ... # on the CPU, tiny
 
@@ -32,7 +34,7 @@ keywords for this script and scripts/torch_chain_probe.py alike. An eager
 chain's run folders, logs and eval folders carry ``eager_`` before their
 names, so chains of both cells stand side by side in one results root.
 
-``--until A|B`` stops the chain after that stage, without the report.
+``--until A|B|C`` stops the chain after that stage, without the report.
 
 A stage is done once its run folder has a best-val checkpoint; A and B are
 skipped then (unless ``FORCE_A=1`` / ``FORCE_B=1``). C always runs and
@@ -55,21 +57,26 @@ stage logs ``<results-root>/logs/{PFX}{A,B,C}.log``, the report's eval
 folders ``<results-root>/results/``. Nothing is written elsewhere.
 
 The report (``--report``, also run after the chain) evaluates B's and C's
-best-val checkpoints and the JAX package's own stage-B checkpoint
-(results_conv/32_1_5/chainB, epoch 23) on the full held-out passes of the
+best-val checkpoints and the JAX package's own stage-B and stage-C
+checkpoints (results_conv/32_1_5/chainB, epoch 23, and
+results_conv/64_1_14/chainC, epoch 34) on the full held-out passes of the
 chain's roots through ``eval.test_model.evaluate_model`` at the stages'
 batch with --bf16, once unseeded (as the JAX records were taken: one draw
-of the loader's order, a fresh one each run) and once per loader seed 0-9
-(the loader's spread: BatchNorm takes each batch's statistics, and the 68
-clips past the last full batch drop); its accuracy and BCE are the seeded
-passes' mean, the same on every run; prints each beside the JAX records
-and the greedy bars; compares each stage's val curve
-with the JAX package's val.npz (the first epoch above 75% balanced
-accuracy, the best value and its epoch); names the stage-A checkpoint B
-started from (hp_dict.npz's ``loaded_ckpt``) with its epoch after A's
-escape (A's first epoch above 75%); and ends with one JSON line. The
-passes are decoded once a process and kept, so scoring many checkpoints
-decodes each shard once a loader seed.
+of the loader's order, a fresh one each run) and once per loader seed
+0-9 (the loader's spread: BatchNorm takes
+each batch's statistics, and the 68 clips past the last full batch drop);
+its accuracy and BCE are the seeded passes' mean, the same on every run;
+prints each beside the JAX records and the greedy bars, and the JAX
+checkpoints' beside their records and the bar (the lower record less 2
+points); ``--jax-curve C`` also scores every best-val checkpoint of the
+JAX package's chainC so, in epoch order, each beside its record at the
+same epoch (results/chainC_eval_*); compares each stage's val curve with
+the JAX package's val.npz (the first epoch above 75% balanced accuracy,
+the best value and its epoch); names the stage-A checkpoint B started
+from (hp_dict.npz's ``loaded_ckpt``) with its epoch after A's escape (A's
+first epoch above 75%); and ends with one JSON line. The passes are
+decoded once a process and kept, so scoring many checkpoints decodes each
+shard once a loader seed.
 
 ``--transfer`` scores every stage-B checkpoint, the chain's and the JAX
 package's, on C's held-out shard; ``--transfer A`` scores every stage-A
@@ -83,6 +90,7 @@ started from. Both print one line a checkpoint and end with one JSON line.
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
 import re
@@ -113,6 +121,11 @@ ABOVE = 75.0  # the val meter's mark of having left the chance plateau (percent)
 # greedy nearest-neighbour bar on the same shard.
 JAX_CHAIN_B = os.path.join(ROOT, "results_conv", "32_1_5", "chainB", "saved_models",
                            "model_val_acc_0090_epoch_23_checkpoint.pth.tar")
+# The JAX package's chainC: its best-val checkpoints (epochs 0-34, each
+# held out once unseeded in results/chainC_eval_<val>_epoch_<NN>), the last
+# of them the one its record is.
+JAX_CHAIN_C = os.path.join(ROOT, "results_conv", "64_1_14", "chainC", "saved_models",
+                           "model_val_acc_0070_epoch_34_checkpoint.pth.tar")
 JAX_CHAIN_A = os.path.join(ROOT, "results_conv", "8_1_1", "chainA")
 # The JAX package's chainA checkpoints that --transfer A scores: its last
 # before the escape (epoch 44) and every one after.
@@ -309,13 +322,16 @@ def curve(path: str) -> dict | None:
             "best": float(balacc.max()), "best_epoch": int(np.argmax(balacc))}
 
 
-def _eval_args(k: dict, results_root: str, tag: str, device, ckpt: str):
+def _eval_args(k: dict, results_root: str, tag: str, device, ckpt: str, jax: bool = False):
     """The stage's own flags as the eval reads them (model, width, batch,
-    --bf16), with ``ckpt``."""
+    --bf16), with ``ckpt``; ``jax``: at the JAX package's chain's width
+    (InT, dims 32, kernel 7) whatever the knobs say."""
     from pathtracker_torch.utils.opts import parser
 
     args = parser.parse_args(stage_flags(tag, k, results_root))
     args.ckpt, args.device = ckpt, device
+    if jax:
+        args.model, args.dimensions, args.fb_kernel_size = "InT", 32, 7
     return args
 
 
@@ -390,9 +406,8 @@ def transfer(results_root: str, env: dict, seeds=SEEDS[:3]) -> dict:
         for name in sorted(os.listdir(saved)) if os.path.isdir(saved) else ():
             if not name.endswith(".tar"):
                 continue
-            args = _eval_args(k, results_root, "C", device, os.path.join(saved, name))
-            if who == "jax":
-                args.model, args.dimensions, args.fb_kernel_size = "InT", 32, 7
+            args = _eval_args(k, results_root, "C", device, os.path.join(saved, name),
+                              jax=who == "jax")
             got = seeded_passes(args, dist, length, seeds)
             out.setdefault(who, {})[name] = got
             print(f"report: transfer [{who} B] {name} on C's shard: {_pct(got['acc'])} / "
@@ -404,6 +419,53 @@ def _epoch(name: str) -> int | None:
     """The epoch in a best-val checkpoint's name (None for the rolling one)."""
     m = re.search(r"_epoch_(\d+)_", os.path.basename(name))
     return int(m.group(1)) if m else None
+
+
+def jax_records(tag: str) -> dict:
+    """The JAX package's held-out records of its chain{tag}'s checkpoints
+    (one unseeded pass each: accuracy and BCE) by epoch: those of
+    results/chain{tag}_eval_<val>_epoch_<NN>, and RECORDS' at the epoch of
+    the checkpoint it scored."""
+    length, dist, _, _ = STAGES[tag]
+    name = f"test_perf_dist_{dist}_speed_{SPEED}_length_{length}.npz"
+    paths = {int(re.search(r"_epoch_(\d+)$", os.path.dirname(p)).group(1)): p for p in
+             glob.glob(os.path.join(ROOT, "results", f"chain{tag}_eval_*_epoch_*", name))}
+    if tag in RECORDS:
+        paths[_epoch({"B": JAX_CHAIN_B, "C": JAX_CHAIN_C}[tag])] = RECORDS[tag]["npz"]
+    out = {}
+    for epoch, path in sorted(paths.items()):
+        saved = np.load(path)
+        out[epoch] = {"acc": float(saved["arr_0"]), "loss": float(saved["arr_1"])}
+    return out
+
+
+def jax_curve(results_root: str, env: dict, tag: str = "C") -> dict:
+    """Every best-val checkpoint of the JAX package's chain{tag}, in epoch
+    order, through ``held_out`` (the report's seeded passes and the
+    unseeded one), each beside the JAX package's own record at its epoch:
+    the JAX run's held-out curve under the port's yardstick."""
+    k = knobs(env)
+    device = env.get("PATHTRACKER_TORCH_DEVICE") or None
+    length, dist, _, _ = STAGES[tag]
+    folder = os.path.dirname(JAX_CURVES[tag])
+    records = jax_records(tag)
+    out = {}
+    for name in sorted(checkpoints(folder), key=_epoch):
+        args = _eval_args(k, results_root, tag, device,
+                          os.path.join(folder, "saved_models", name), jax=True)
+        got = held_out(args, dist, length,
+                       os.path.join(results_root, "results", f"jax_chain{tag}_curve"))
+        epoch = _epoch(name)
+        got.update(epoch=epoch, record=records.get(epoch))
+        out[name] = got
+        print(f"report: JAX chain{tag} epoch {epoch}: {_pct(got['acc'])} / "
+              f"{got['loss']:.4f} BCE held-out (seeded mean, "
+              f"{' to '.join(_pct(a) for a in got['acc_range'])}; unseeded "
+              f"{_pct(got['unseeded']['acc'])}); its record "
+              + ("none" if got["record"] is None else
+                 f"{_pct(got['record']['acc'])} / {got['record']['loss']:.4f} BCE"),
+              flush=True)
+    return out
 
 
 def checkpoints(folder: str, epochs=None) -> list[str]:
@@ -466,9 +528,8 @@ def transfer_a(results_root: str, env: dict, seeds=SEEDS[:3]) -> dict:
                    else epoch - escape}
             for tag in ("B", "C"):
                 length, dist, _, _ = STAGES[tag]
-                args = _eval_args(k, results_root, tag, device, os.path.join(saved, name))
-                if who == "jax":
-                    args.model, args.dimensions, args.fb_kernel_size = "InT", 32, 7
+                args = _eval_args(k, results_root, tag, device, os.path.join(saved, name),
+                                  jax=who == "jax")
                 row[tag] = seeded_passes(args, dist, length, seeds)
             rows[name] = row
             print(f"report: transfer A [{who}] {name} (epoch {epoch}, "
@@ -495,11 +556,13 @@ def _pct(x) -> str:
     return "-" if x is None else f"{100 * x:.2f}%"
 
 
-def report(results_root: str, env: dict, every: bool = False) -> dict:
+def report(results_root: str, env: dict, every: bool = False,
+           jax_curve_of: str | None = None) -> dict:
     """The chain's numbers beside the JAX package's; the summary dict.
     ``every``: also score each of B's and C's other checkpoints (every
     best-val one and the rolling one, which holds the raw weights, not
-    C's EMA) on the same passes."""
+    C's EMA) on the same passes. ``jax_curve_of`` ("C"): also every
+    checkpoint of the JAX package's chain of that stage (``jax_curve``)."""
     k = knobs(env)
     device = env.get("PATHTRACKER_TORCH_DEVICE") or None
     out = {"card": _card(), "device": device or "cuda", "stages": {}, "knobs": {
@@ -537,10 +600,18 @@ def report(results_root: str, env: dict, every: bool = False) -> dict:
             row["started_from"] = started_from(folder, run_folder(results_root, "A", k))
             print(f"report: [B] {_describe_start(row['started_from'])}", flush=True)
         out["stages"][tag] = row
-    jax_args = _eval_args(k, results_root, "B", device, JAX_CHAIN_B)
-    jax_args.model, jax_args.dimensions, jax_args.fb_kernel_size = "InT", 32, 7
-    out["jax_chainB"] = held_out(jax_args, STAGES["B"][1], STAGES["B"][0],
-                                 os.path.join(evals, "jax_chainB_eval"))
+    if jax_curve_of:
+        out["jax_curve"] = {"stage": jax_curve_of,
+                            "checkpoints": jax_curve(results_root, env, jax_curve_of)}
+    for tag, ckpt in (("B", JAX_CHAIN_B), ("C", JAX_CHAIN_C)):
+        scored = (out.get("jax_curve") or {}).get("checkpoints", {})
+        if jax_curve_of == tag and os.path.basename(ckpt) in scored:
+            out[f"jax_chain{tag}"] = scored[os.path.basename(ckpt)]
+        else:
+            length, dist, _, _ = STAGES[tag]
+            out[f"jax_chain{tag}"] = held_out(
+                _eval_args(k, results_root, tag, device, ckpt, jax=True), dist, length,
+                os.path.join(evals, f"jax_chain{tag}_eval"))
     verdicts = {}
     for tag, record in RECORDS.items():
         saved = np.load(record["npz"])
@@ -559,17 +630,19 @@ def report(results_root: str, env: dict, every: bool = False) -> dict:
         out["stages"][tag]["jax_record"] = dict(want, other_runs=record["other_runs"],
                                                 greedy=record["greedy"])
         verdicts[tag] = None if got is None else bool(got["acc"] >= min(runs) - MARGIN)
-    jb = out["jax_chainB"]
-    saved = np.load(RECORDS["B"]["npz"])
-    record_acc = float(saved["arr_0"])
-    verdicts["jax_chainB_in_spread"] = bool(jb["acc_range"][0] <= record_acc
-                                            <= jb["acc_range"][1])
-    print(f"report: JAX chainB (epoch 23) scored by the port on B's shard: "
-          f"{_pct(jb['acc'])} / {jb['loss']:.4f} BCE seeded mean, seeded passes "
-          f"{' to '.join(_pct(a) for a in jb['acc_range'])}, unseeded "
-          f"{_pct(jb['unseeded']['acc'])}; its record "
-          f"{_pct(record_acc)} {'inside' if verdicts['jax_chainB_in_spread'] else 'outside'}"
-          " the spread", flush=True)
+    for tag, ckpt in (("B", JAX_CHAIN_B), ("C", JAX_CHAIN_C)):
+        jx = out[f"jax_chain{tag}"]
+        record_acc = float(np.load(RECORDS[tag]["npz"])["arr_0"])
+        bar = min(record_acc, *RECORDS[tag]["other_runs"]) - MARGIN
+        inside = verdicts[f"jax_chain{tag}_in_spread"] = bool(
+            jx["acc_range"][0] <= record_acc <= jx["acc_range"][1])
+        verdicts[f"jax_chain{tag}_above_bar"] = bool(jx["acc"] >= bar)
+        print(f"report: JAX chain{tag} (epoch {_epoch(ckpt)}) scored by the port on "
+              f"{tag}'s shard: {_pct(jx['acc'])} / {jx['loss']:.4f} BCE seeded mean, seeded "
+              f"passes {' to '.join(_pct(a) for a in jx['acc_range'])}, unseeded "
+              f"{_pct(jx['unseeded']['acc'])}; its record {_pct(record_acc)} "
+              f"{'inside' if inside else 'outside'} the spread; the bar {_pct(bar)}",
+              flush=True)
     curve_a = out["stages"]["A"]["curve"]
     verdicts["A_left_plateau"] = (None if curve_a is None
                                   else curve_a["first_above_75"] is not None)
@@ -588,11 +661,14 @@ def main(argv=None) -> int:
                    help="run the report alone (the chain runs it at its end)")
     p.add_argument("--every-checkpoint", action="store_true",
                    help="the report also scores B's and C's other checkpoints")
+    p.add_argument("--jax-curve", default=None, choices=("C",),
+                   help="the report also scores every checkpoint of the JAX package's "
+                        "chain of this stage under its seeded passes")
     p.add_argument("--transfer", nargs="?", const="B", choices=("A", "B"),
                    help="instead of the report, score every checkpoint of the stage "
                         "(default B), the chain's and the JAX package's, on the shards of "
                         "the stages after it")
-    p.add_argument("--until", default="C", choices=tuple(STAGES),
+    p.add_argument("--until", default=None, choices=tuple(STAGES),
                    help="stop the chain after this stage, without the report")
     p.add_argument("--data-root", default=None,
                    help="where the configs are rendered (default $PATHTRACKER_DATA_ROOT, "
@@ -610,7 +686,7 @@ def main(argv=None) -> int:
     os.environ["PATHTRACKER_SYNTH_TRAIN"] = k["SYNTH_TRAIN"]
     os.environ["PATHTRACKER_SYNTH_TEST"] = k["SYNTH_TEST"]
     env = dict(os.environ)
-    if not (a.report or a.transfer) and not chain(results_root, env, a.until):
+    if not (a.report or a.transfer) and not chain(results_root, env, a.until or "C"):
         return 1
     if a.transfer == "A":
         print(json.dumps({"transfer_a": transfer_a(results_root, env)}), flush=True)
@@ -618,9 +694,9 @@ def main(argv=None) -> int:
     if a.transfer:
         print(json.dumps({"transfer": transfer(results_root, env)}), flush=True)
         return 0
-    if a.until != "C" and not a.report:
+    if a.until and not a.report:
         return 0
-    print(json.dumps(report(results_root, env, a.every_checkpoint)), flush=True)
+    print(json.dumps(report(results_root, env, a.every_checkpoint, a.jax_curve)), flush=True)
     return 0
 
 

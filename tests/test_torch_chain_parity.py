@@ -30,6 +30,7 @@ from pathtracker_torch.data import prng
 from pathtracker_torch.data import resident as TR
 from pathtracker_torch.data.pathtracker import render_batch
 from pathtracker_torch.models.int_circuit import InT
+from pathtracker_torch.models.int_init import jax_int_params
 from pathtracker_torch.train import checkpoint as tckpt
 from pathtracker_torch.train import steps as TS
 from pathtracker_torch.train.torch_import import (export_reference_state_dict,
@@ -45,6 +46,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHAIN_CLIPS, CHAIN_BATCH, WINDOW = 20000, 128, 12  # the chain's knobs
 STAGE_DIRS = {"A": "8_1_1", "B": "32_1_5", "C": "64_1_14"}
 PATIENCE = 200  # train/loop.py's EarlyStopping
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """torch on one thread: the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("epoch", [0, 1, 37, 59])
@@ -67,6 +77,8 @@ def _val_curves():
     roots = [("jax", ROOT, "")]
     kept = os.path.join(ROOT, "results_torch")
     for name in sorted(os.listdir(kept)) if os.path.isdir(kept) else ():
+        if not name.startswith("chain_"):  # a crossover run, not a chain
+            continue
         cell = name.split("_")[1]
         roots.append((name, os.path.join(kept, name), "" if cell == "fused" else f"{cell}_"))
     for label, root, pfx in roots:
@@ -164,18 +176,19 @@ COS_MIN, NORM_RTOL = 0.75, 0.02
 
 def test_resident_window_at_full_width_is_jaxs():
     """Stage A's first window at the chain's width (dims 32, kernel 7,
-    --bf16, lr 2e-3), from the JAX package's seeded init, through the
+    --bf16, lr 2e-3), from InT's seeded init (the JAX package's draw, as
+    models/int_init.py makes it without JAX's init), through the
     port's resident window (the fused cell: K1-K3's plain versions here)
     and the JAX package's resident window (its eager mixed cell) on the
     same rendered clips: per-step losses and the move of the weights."""
     clips, labels = render_batch(3, W_CLIPS, timesteps=W_T, n_distractors=1, dot_size=2)
     labels = labels.astype(np.uint8)
     jm = JInT(dimensions=32, timesteps=W_T, kernel_size=7, dtype="bfloat16")
-    init = jm.init(jax.random.key(0), jnp.zeros((W_BATCH, 3, W_T, 32, 32)))["params"]
+    init = jax_int_params(0, 32, 7, W_T)
     jopt = JS.make_optimizer(2e-3)
     jstep = JR.make_resident_train_step(jm, "InT", jopt, n_clips=W_CLIPS, batch_size=W_BATCH,
                                         seed=0, fused_steps=W_STEPS)
-    jparams, jstate, jstats = jstep(jax.tree.map(jnp.copy, init), jopt.init(init),
+    jparams, jstate, jstats = jstep(jax.tree.map(jnp.asarray, init), jopt.init(init),
                                     jnp.asarray(clips), jnp.asarray(labels))
     model = InT(dimensions=32, timesteps=W_T, kernel_size=7, dtype="bfloat16", device="cpu")
     model.load_state_dict(export_reference_state_dict({k: np.asarray(v)

@@ -38,6 +38,9 @@ Phases, printed in order; any failure exits non-zero before the last line:
   6. gradients of sum(logit^2) for every parameter, fused cell against eager
      mixed cell, normalised by each gradient's largest entry: held at batch
      128, T=8 from the seeded init; printed at T=64 with the chainE weights;
+     then stage A's plateau (the JAX chainA's epoch 38): two Adam steps of
+     stage A's flags at batch 128 through each cell, the fused cell's move
+     of the weights held to the eager cell's in length and cosine;
   7. train chainE for 10 steps at batch 128, T=64, mixed bf16, fused,
      Adam(3e-4), through make_train_step on one batch of the rendered clips:
      finite stats, per step 2T launches of each forward kernel and T of each
@@ -324,6 +327,26 @@ REDUCTION_RTOL = 1e-3
 # measures 8.6e-3, while the eager mixed cell itself sits 5.4e-3 from the f32
 # path (both printed below): held to 2e-2.
 GRAD_ATOL = 2e-2
+# Stage A's chance plateau: the JAX package's chainA at epoch 38, its last
+# checkpoint before the escape. Two Adam steps of stage A's flags (T=8, dist
+# 1, lr 2e-3) at the chain's batch, through the fused and the eager cell
+# from the same weights: the fused cell's move of the weights, as one
+# vector, within PLATEAU_RTOL of the eager cell's in length
+# (tests/test_torch_chain_steps.py's bound, there against the JAX
+# package's default cell, two clips a step), at cosine at least
+# PLATEAU_COS_MIN. Here the batch norm's direct input cotangent and its
+# statistics' part nearly cancel. A first Adam step is about lr * sign(g),
+# so the two cells' other roundings (the fused gate products stay f32)
+# flip near-zero entries: on an H100 80GB HBM3 at 700 W the fused cell
+# measured 1.00476 / 0.98296 (ratio / cosine) at 128 clips a step, 0.99998
+# / 0.98719 at 32 and 1.00241 / 0.99952 at 2, and the same cell with the two
+# cotangent parts rounded to bf16 apart 0.97716 / 0.89339, 1.07928 /
+# 0.79878 and 1.03892 / 0.93462.
+PLATEAU_CKPT = os.path.join(ROOT, "results_conv", "8_1_1", "chainA", "saved_models",
+                            "model_val_acc_0056_epoch_38_checkpoint.pth.tar")
+PLATEAU_T, PLATEAU_DIST, PLATEAU_LR = 8, 1, 2e-3
+PLATEAU_BATCH, PLATEAU_STEPS = 128, 2
+PLATEAU_RTOL, PLATEAU_COS_MIN = 0.02, 0.95
 # First training loss, fused vs eager from the same weights: a mean over 128
 # clips of BCE terms whose scores differ by 0.002 on average (phase 4).
 LOSS_ATOL = 0.01
@@ -1110,6 +1133,52 @@ def gradient_phase(serve, F, rendered) -> None:
               flush=True)
         if held and gap > GRAD_ATOL:
             fail(f"fused and eager gradients differ by {gap:.4g} > {GRAD_ATOL}")
+
+
+def plateau_check(serve, F) -> tuple[float, float]:
+    """Stage A's steps from PLATEAU_CKPT through the fused and the eager
+    cell: (the fused move's length over the eager one's, their cosine);
+    fails past PLATEAU_RTOL / PLATEAU_COS_MIN or if the fused steps did not
+    launch K1-K3."""
+    from pathtracker_torch.data.pathtracker import render_batch
+    from pathtracker_torch.train.steps import make_optimizer, make_train_step
+
+    dev = torch.device(DEVICE)
+    clips, labels = render_batch(11, PLATEAU_BATCH * PLATEAU_STEPS, PLATEAU_T,
+                                 n_distractors=PLATEAU_DIST, dot_size=DOT_SIZE)
+    clips = torch.from_numpy(clips).to(dev).view(PLATEAU_STEPS, PLATEAU_BATCH, *clips.shape[1:])
+    labels = torch.from_numpy(labels).to(dev).view(PLATEAU_STEPS, PLATEAU_BATCH)
+    moves, losses = {}, {}
+    for cell, kw in (("fused", {}), ("eager", {"fused": False})):
+        model = serve.build(ckpt=PLATEAU_CKPT, length=PLATEAU_T, bf16=True, device=dev,
+                            **kw).train()
+        if model.use_fused != (cell == "fused"):
+            fail(f"plateau: the {cell} model did not dispatch to the {cell} cell")
+        params = [p for p in model.parameters() if p.requires_grad]
+        start = [p.detach().clone() for p in params]
+        step = make_train_step(model, "InT", make_optimizer(PLATEAU_LR))
+        before = [k.launches for k in F.KERNELS]
+        losses[cell] = [float(step(clips[i], labels[i])["loss"]) for i in range(PLATEAU_STEPS)]
+        torch.cuda.synchronize()
+        rose = [k.launches - b for k, b in zip(F.KERNELS, before)]
+        want = ([2 * PLATEAU_T * PLATEAU_STEPS] * 3 + [PLATEAU_T * PLATEAU_STEPS] * 3
+                if cell == "fused" else [0] * 6)
+        if rose != want:
+            fail(f"plateau, {cell}: kernel launches rose by {rose}, expected {want}")
+        moves[cell] = torch.cat([(p.detach() - s).flatten().double()
+                                 for p, s in zip(params, start)])
+    fused, eager = moves["fused"], moves["eager"]
+    ratio = (fused.norm() / eager.norm()).item()
+    cosine = (fused @ eager / fused.norm() / eager.norm()).item()
+    print(f"gradients, stage A's plateau (the JAX chainA's epoch 38, {PLATEAU_STEPS} steps "
+          f"of {PLATEAU_BATCH} clips, T={PLATEAU_T}, lr {PLATEAU_LR}): the fused cell moves "
+          f"the weights {ratio:.5f} times as far as the eager cell, cosine {cosine:.5f} "
+          f"(held: within {PLATEAU_RTOL} and >= {PLATEAU_COS_MIN}); losses fused "
+          f"{' '.join(f'{v:.5f}' for v in losses['fused'])}, eager "
+          f"{' '.join(f'{v:.5f}' for v in losses['eager'])}", flush=True)
+    if abs(ratio - 1.0) > PLATEAU_RTOL or cosine < PLATEAU_COS_MIN:
+        fail(f"plateau: fused vs eager move ratio {ratio:.5f}, cosine {cosine:.5f}")
+    return ratio, cosine
 
 
 def train_phase(serve, F, kernel_rows: list[dict], rendered):
@@ -2660,16 +2729,19 @@ def _as_ranks(ranks: int, only: str | None = None):
         k1 = [F.k1_attention(exc[i], att_x[i], cp["a_u"].to(bf16), cp["a_u_b"])
               for i in range(ranks)]
         conv_i = [conv_rows(gated, cp["w_inh"], part) for gated, _ in k1]
+        conv_i32 = [z.float() for z in conv_i]  # each rank's f32 view, as the cell's
         new_inh = [F.k2_inhibition(
             conv_i[i], mean0, rstd0, cp["bn0_scale"], cp["bn0_bias"], inp[i], gi_x[i],
-            inh[i], cp["i_u"].to(bf16), cp["i_u_b"], cp["alpha"], cp["mu"])
-            for i, (mean0, rstd0) in enumerate(rank_stats(conv_i))]
+            inh[i], cp["i_u"].to(bf16), cp["i_u_b"], cp["alpha"], cp["mu"],
+            conv_f32=conv_i32[i])
+            for i, (mean0, rstd0) in enumerate(rank_stats(conv_i32))]
         conv_e = [conv_rows(z, cp["w_exc"], part) for z in new_inh]
+        conv_e32 = [z.float() for z in conv_e]
         new_exc = [F.k3_excitation(
             conv_e[i], mean1, rstd1, cp["bn1_scale"], cp["bn1_bias"], new_inh[i], inh[i],
             k1[i][0], exc[i], cp["e_w"].to(bf16), cp["e_w_b"], cp["e_u"].to(bf16),
-            cp["e_u_b"], cp["kappa"], cp["gamma"])
-            for i, (mean1, rstd1) in enumerate(rank_stats(conv_e))]
+            cp["e_u_b"], cp["kappa"], cp["gamma"], conv_f32=conv_e32[i])
+            for i, (mean1, rstd1) in enumerate(rank_stats(conv_e32))]
         return (torch.cat(new_inh), torch.cat(new_exc)), torch.cat([a for _, a in k1])
 
     def rank_dense(x, *a, **kw):  # the hoisted projections, [T, B, H, W, C]
@@ -4482,6 +4554,7 @@ def main() -> int:
     kernel_rows += backward_kernel_phase(F)
     mark("phase 5")
     gradient_phase(serve, F, rendered)
+    plateau_check(serve, F)
     mark("phase 6")
     bare_steps = train_phase(serve, F, kernel_rows, rendered)
     mark("phase 7")

@@ -18,7 +18,7 @@
 // gate matrices w[k][c] (k = input channel), [32] f32 vectors.
 //
 // Bound: device-memory bytes. K1 moves 14 B per row element (18 B with a
-// cotangent for the attention map), K2 24 B, K3 36 B, against 3, 3 and 6
+// cotangent for the attention map), K2 26 B, K3 38 B, against 3, 3 and 6
 // 32-term products per element. On the f32 CUDA cores those products alone
 // (192-384 FLOP and 8-14 FLOP/B) cost more instruction slots and shared-memory
 // wavefronts than the bytes cost time, so all three run them on the tensor
@@ -50,8 +50,11 @@
 //     when it is given (a null pointer reads as zeros).
 //   * Stores: each lane writes its outputs over the staged input of the same
 //     type and position (dexc over exc, dattx over att_x, dinh over inh,
-//     ...), and the warp then copies the finished rows out 16 bytes a lane,
-//     fully coalesced.
+//     ...; K2's and K3's f32 dconv over dnew), and the warp then copies the
+//     finished rows out 16 bytes a lane, fully coalesced. dconv, the batch
+//     norm's direct input cotangent dxn * rstd, is written unrounded: the
+//     caller adds the statistics' part to it in f32 and rounds the sum to
+//     the conv output's bf16 once, as an f32 batch norm's backward does.
 //   * Rows past the end are zero-filled by cp.async (source size 0) with a
 //     zero cotangent, which makes every one of their cotangents and
 //     reduction terms exactly zero; they are not copied out.
@@ -340,7 +343,7 @@ k2_bwd_kernel(const bf16* __restrict__ conv_i, const float* __restrict__ mean0,
               const bf16* __restrict__ gi_x, const float* __restrict__ inh,
               const bf16* __restrict__ i_u, const float* __restrict__ i_u_b,
               const float* __restrict__ alpha, const float* __restrict__ mu,
-              const float* __restrict__ dnew, bf16* __restrict__ dconv,
+              const float* __restrict__ dnew, float* __restrict__ dconv,
               bf16* __restrict__ dinp, bf16* __restrict__ dgix, float* __restrict__ dinh,
               float* __restrict__ ws, long long rows) {
   extern __shared__ uint4 dyn_smem[];
@@ -471,7 +474,7 @@ k2_bwd_kernel(const bf16* __restrict__ conv_i, const float* __restrict__ mean0,
         }
         const unsigned d = pack_bf16(dgpre_[0], dgpre_[1]);  // dgpre rounds once, here
         da[nt / 2][a_reg(nt, half)] = d;
-        s_cv[bo] = pack_bf16(dconv_[0], dconv_[1]);
+        *reinterpret_cast<float2*>(&s_dn[fo]) = make_float2(dconv_[0], dconv_[1]);  // f32, unrounded
         s_in[bo] = pack_bf16(dinp_[0], dinp_[1]);
         s_gx[bo] = d;
       }
@@ -504,7 +507,7 @@ k2_bwd_kernel(const bf16* __restrict__ conv_i, const float* __restrict__ mean0,
     __syncwarp();  // every lane's outputs are staged
     const long long row0 = item * MROWS;
     stage_out<8>(dinh, s_h, row0, rows, lane);
-    stage_out<4>(dconv, s_cv, row0, rows, lane);
+    stage_out<8>(dconv, s_dn, row0, rows, lane);
     stage_out<4>(dinp, s_in, row0, rows, lane);
     stage_out<4>(dgix, s_gx, row0, rows, lane);
   });
@@ -526,7 +529,7 @@ k3_bwd_kernel(const bf16* __restrict__ conv_e, const float* __restrict__ mean1,
               const float* __restrict__ e_w_b, const bf16* __restrict__ e_u,
               const float* __restrict__ e_u_b, const float* __restrict__ kappa,
               const float* __restrict__ gamma, const float* __restrict__ dnew,
-              bf16* __restrict__ dconv, float* __restrict__ dninh,
+              float* __restrict__ dconv, float* __restrict__ dninh,
               float* __restrict__ dinh, bf16* __restrict__ dgated,
               float* __restrict__ dexc, float* __restrict__ ws, long long rows) {
   extern __shared__ uint4 dyn_smem[];
@@ -659,7 +662,7 @@ k3_bwd_kernel(const bf16* __restrict__ conv_e, const float* __restrict__ mean1,
           dgpre_[e] = dgpre;
         }
         da[nt / 2][a_reg(nt, half)] = pack_bf16(dgpre_[0], dgpre_[1]);  // rounds once, here
-        s_cv[bo] = pack_bf16(dconv_[0], dconv_[1]);
+        *reinterpret_cast<float2*>(&s_dn[fo]) = make_float2(dconv_[0], dconv_[1]);  // f32, as K2's
         *reinterpret_cast<float2*>(&s_ni[fo]) = make_float2(dninh_[0], dninh_[1]);
         *reinterpret_cast<float2*>(&s_e[fo]) = make_float2(dexc_[0], dexc_[1]);
       }
@@ -708,7 +711,7 @@ k3_bwd_kernel(const bf16* __restrict__ conv_e, const float* __restrict__ mean1,
     stage_out<8>(dninh, s_ni, row0, rows, lane);
     stage_out<8>(dinh, s_h, row0, rows, lane);
     stage_out<8>(dexc, s_e, row0, rows, lane);
-    stage_out<4>(dconv, s_cv, row0, rows, lane);
+    stage_out<8>(dconv, s_dn, row0, rows, lane);
     stage_out<4>(dgated, s_ge, row0, rows, lane);
   });
   __syncthreads();  // every warp has left its ring
@@ -792,7 +795,8 @@ int k1_attention_bwd(const void* exc, const void* att_x, const void* a_u,
   return (int)cudaGetLastError();
 }
 
-// As k1_attention_bwd. di_u is [32, 32] bf16; sums [7, 32] f32 = [di_u_b,
+// As k1_attention_bwd. dconv is [rows, 32] f32, dinp and dgix bf16, dinh f32;
+// di_u is [32, 32] bf16; sums [7, 32] f32 = [di_u_b,
 // dalpha, dmu, dmean, drstd, dscale, dbias]; ws the f32 workspace sized by
 // k2_inhibition_bwd_blocks.
 int k2_inhibition_bwd(const void* conv_i, const void* mean0, const void* rstd0,
@@ -811,7 +815,7 @@ int k2_inhibition_bwd(const void* conv_i, const void* mean0, const void* rstd0,
       (const bf16*)conv_i, (const float*)mean0, (const float*)rstd0,
       (const float*)scale0, (const float*)bias0, (const bf16*)inp,
       (const bf16*)gi_x, (const float*)inh, (const bf16*)i_u, (const float*)i_u_b,
-      (const float*)alpha, (const float*)mu, (const float*)dnew, (bf16*)dconv,
+      (const float*)alpha, (const float*)mu, (const float*)dnew, (float*)dconv,
       (bf16*)dinp, (bf16*)dgix, (float*)dinh, (float*)ws, rows);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -840,7 +844,7 @@ int k3_excitation_bwd(const void* conv_e, const void* mean1, const void* rstd1,
       (const float*)scale1, (const float*)bias1, (const float*)new_inh,
       (const float*)inh, (const bf16*)gated, (const float*)exc, (const bf16*)e_w,
       (const float*)e_w_b, (const bf16*)e_u, (const float*)e_u_b,
-      (const float*)kappa, (const float*)gamma, (const float*)dnew, (bf16*)dconv,
+      (const float*)kappa, (const float*)gamma, (const float*)dnew, (float*)dconv,
       (float*)dninh, (float*)dinh, (bf16*)dgated, (float*)dexc, (float*)ws, rows);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

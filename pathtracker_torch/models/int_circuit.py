@@ -199,23 +199,27 @@ def _int_cell_step_fused(cp, xt, carry, shape):
     K1, conv, BN0 stats, K2, conv, BN1 stats, K3. The gate matrices are cast
     to bf16 here: no work when ``cp`` holds them in bf16 already (no
     gradient asked for), and one f32 gradient per step when it holds the f32
-    parameters."""
+    parameters. Each conv output's f32 view feeds its BN statistics and
+    takes K2's or K3's gradient for it, so the batch norm's two input
+    cotangents add in f32 and round to bf16 once, as in the eager cell."""
     c = shape[-1]
     bf16 = torch.bfloat16
     inp, att_x, gi_x = (z.reshape(-1, c) for z in xt)
     inh, exc = carry
     gated, att = F.k1_attention(exc, att_x, cp["a_u"].to(bf16), cp["a_u_b"])
     conv_i = _conv_rows(gated, cp["w_inh"], shape)
-    mean0, rstd0 = F.stats(conv_i)
+    conv_i32 = conv_i.float()
+    mean0, rstd0 = F.stats(conv_i32)
     new_inh = F.k2_inhibition(
         conv_i, mean0, rstd0, cp["bn0_scale"], cp["bn0_bias"], inp, gi_x, inh,
-        cp["i_u"].to(bf16), cp["i_u_b"], cp["alpha"], cp["mu"])
+        cp["i_u"].to(bf16), cp["i_u_b"], cp["alpha"], cp["mu"], conv_f32=conv_i32)
     conv_e = _conv_rows(new_inh, cp["w_exc"], shape)
-    mean1, rstd1 = F.stats(conv_e)
+    conv_e32 = conv_e.float()
+    mean1, rstd1 = F.stats(conv_e32)
     new_exc = F.k3_excitation(
         conv_e, mean1, rstd1, cp["bn1_scale"], cp["bn1_bias"], new_inh, inh,
         gated, exc, cp["e_w"].to(bf16), cp["e_w_b"], cp["e_u"].to(bf16),
-        cp["e_u_b"], cp["kappa"], cp["gamma"])
+        cp["e_u_b"], cp["kappa"], cp["gamma"], conv_f32=conv_e32)
     return (new_inh, new_exc), att
 
 

@@ -37,6 +37,16 @@ arithmetic of its own. ``k1_attention``, ``k2_inhibition`` and
 go through a ``torch.autograd.Function`` whose backward is the backward
 wrapper.
 
+The batch norm's input cotangent is summed in f32 and rounded once. K2's
+and K3's backward return the direct part ``dxn * rstd`` of the conv
+output's cotangent in f32; ``k2_inhibition(..., conv_f32=x)`` and
+``k3_excitation`` hand it to ``x``, the f32 view ``conv.float()`` that
+``stats`` also reads, so autograd adds the statistics' part to it in f32
+and the view's backward rounds the sum to the conv output's bf16 once, as
+the eager mixed cell's f32 batch norm does. (The Pallas kernels round the
+direct part to bf16 and the two parts meet in bf16: on InT's chance
+plateau, where they nearly cancel, that rounding is most of what is left.)
+
 The three forward phases are also registered as ``torch.library`` custom
 ops (``torch.ops.pathtracker.k1_attention`` etc.): the checks, the launch
 (or the plain version on the CPU) and the launch count are the op's real
@@ -154,8 +164,9 @@ def k1_attention_bwd_plain(exc, att_x, a_u, a_u_b, dgated, datt=None):
 def k2_inhibition_bwd_plain(conv_i, mean0, rstd0, scale0, bias0, inp, gi_x, inh,
                             i_u, i_u_b, alpha, mu, dnew):
     """int_fused.py::_k2_bwd_kernel (:254-297). One gradient per forward
-    input, in the forward's order: conv_i, inp, gi_x bf16; inh f32; i_u in
-    its own dtype; the vectors f32 [C]."""
+    input, in the forward's order: conv_i f32 (the batch norm's direct
+    part, unrounded; Pallas rounds it to bf16), inp, gi_x bf16; inh f32;
+    i_u in its own dtype; the vectors f32 [C]."""
     cm = conv_i.float() - mean0
     xn = cm * rstd0
     bn0 = xn * scale0 + bias0
@@ -172,7 +183,7 @@ def k2_inhibition_bwd_plain(conv_i, mean0, rstd0, scale0, bias0, inp, gi_x, inh,
     dlin = dt1 * bn0
     dxn = dbn0 * scale0
     dinh = dnew * (1.0 - g) + dlin * alpha + _dot_t(dgpre, i_u)
-    return ((dxn * rstd0).to(_BF16), (-dxn).sum(dim=0) * rstd0,
+    return (dxn * rstd0, (-dxn).sum(dim=0) * rstd0,
             (dxn * cm).sum(dim=0), (dbn0 * xn).sum(dim=0), dbn0.sum(dim=0),
             dpre2.to(_BF16), dgpre.to(_BF16), dinh,
             _wgrad(inh, dgpre, i_u.dtype), dgpre.sum(dim=0),
@@ -183,7 +194,8 @@ def k3_excitation_bwd_plain(conv_e, mean1, rstd1, scale1, bias1, new_inh, inh,
                             gated, exc, e_w, e_w_b, e_u, e_u_b, kappa, gamma,
                             dnew):
     """int_fused.py::_k3_bwd_kernel (:388-435). One gradient per forward
-    input, in the forward's order; both gate biases get the same sum."""
+    input, in the forward's order, conv_e's in f32 as K2's conv_i; both gate
+    biases get the same sum."""
     cm = conv_e.float() - mean1
     xn = cm * rstd1
     bn1 = xn * scale1 + bias1
@@ -198,7 +210,7 @@ def k3_excitation_bwd_plain(conv_e, mean1, rstd1, scale1, bias1, new_inh, inh,
     dlin = dt1 * bn1
     dxn = dbn1 * scale1
     db = dgpre.sum(dim=0)
-    return ((dxn * rstd1).to(_BF16), (-dxn).sum(dim=0) * rstd1,
+    return (dxn * rstd1, (-dxn).sum(dim=0) * rstd1,
             (dxn * cm).sum(dim=0), (dbn1 * xn).sum(dim=0), dbn1.sum(dim=0),
             dlin * kappa, _dot_t(dgpre, e_w), _dot_t(dgpre, e_u).to(_BF16),
             dnew * (1.0 - g), _wgrad(inh, dgpre, e_w.dtype), db,
@@ -329,13 +341,14 @@ def k1_attention_bwd(exc, att_x, a_u, a_u_b, dgated, datt=None):
 def k2_inhibition_bwd(conv_i, mean0, rstd0, scale0, bias0, inp, gi_x, inh,
                       i_u, i_u_b, alpha, mu, dnew):
     """The K2 inputs and dnew [R,C] f32 -> one gradient per input, in the
-    inputs' order and dtypes (the vectors' as f32 [C])."""
+    inputs' order and dtypes (the vectors' as f32 [C]), but conv_i's:
+    f32 [R,C]."""
     args = (conv_i, mean0, rstd0, scale0, bias0, inp, gi_x, inh, i_u, i_u_b,
             alpha, mu, dnew)
     if not _on_card(_K2_SPEC + (("dnew", _F32, "rows"),), args):
         return k2_inhibition_bwd_plain(*args)
-    dconv, dinp, dgix = (torch.empty_like(conv_i) for _ in range(3))
-    dinh = torch.empty_like(inh)
+    dconv, dinh = torch.empty_like(inh), torch.empty_like(inh)
+    dinp, dgix = torch.empty_like(inp), torch.empty_like(gi_x)
     di_u = torch.empty_like(i_u)
     # rows of red: [di_u_b, dalpha, dmu, dmean, drstd, dscale, dbias]
     red = torch.empty((7, C), dtype=_F32, device=inh.device)
@@ -350,13 +363,14 @@ def k2_inhibition_bwd(conv_i, mean0, rstd0, scale0, bias0, inp, gi_x, inh,
 def k3_excitation_bwd(conv_e, mean1, rstd1, scale1, bias1, new_inh, inh, gated,
                       exc, e_w, e_w_b, e_u, e_u_b, kappa, gamma, dnew):
     """The K3 inputs and dnew [R,C] f32 -> one gradient per input, in the
-    inputs' order and dtypes; both gate biases get the same sum."""
+    inputs' order and dtypes but conv_e's (f32 [R,C]); both gate biases get
+    the same sum."""
     args = (conv_e, mean1, rstd1, scale1, bias1, new_inh, inh, gated, exc,
             e_w, e_w_b, e_u, e_u_b, kappa, gamma, dnew)
     if not _on_card(_K3_SPEC + (("dnew", _F32, "rows"),), args):
         return k3_excitation_bwd_plain(*args)
-    dconv, dgated = torch.empty_like(conv_e), torch.empty_like(gated)
-    dninh, dinh, dexc = (torch.empty_like(exc) for _ in range(3))
+    dgated = torch.empty_like(gated)
+    dconv, dninh, dinh, dexc = (torch.empty_like(exc) for _ in range(4))
     de_w, de_u = torch.empty_like(e_w), torch.empty_like(e_u)
     # rows of red: [de_w_b = de_u_b, dkappa, dgamma, dmean, drstd, dscale, dbias]
     red = torch.empty((7, C), dtype=_F32, device=exc.device)
@@ -379,6 +393,15 @@ def _cotangent(d, like):
 def _needed(ctx, grads):
     return tuple(g if need else None
                  for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def _conv_grads(ctx, grads):
+    """K2's or K3's gradients for (conv_f32, conv, *rest): the f32 conv
+    gradient goes to the f32 view where one was given, else to the bf16
+    conv output (autograd rounds it there)."""
+    dconv, *rest = grads
+    to_view = ctx.via_view
+    return _needed(ctx, (dconv if to_view else None, None if to_view else dconv, *rest))
 
 
 # ------------------- the forward phases as custom ops ------------------------
@@ -454,35 +477,40 @@ class K1Attention(torch.autograd.Function):
 
 
 class K2Inhibition(torch.autograd.Function):
-    """``k2_inhibition`` with ``k2_inhibition_bwd`` as its backward."""
+    """``k2_inhibition`` with ``k2_inhibition_bwd`` as its backward. The
+    first input is conv_i's f32 view or None (``_conv_grads``); the kernel
+    reads the bf16 conv_i."""
 
     @staticmethod
-    def forward(ctx, *args):
+    def forward(ctx, conv_f32, *args):
         ctx.save_for_backward(*args)
         ctx.set_materialize_grads(False)
+        ctx.via_view = conv_f32 is not None
         return _forward(_k2_op, _k2_impl, args)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dnew):
         args = ctx.saved_tensors
-        return _needed(ctx, k2_inhibition_bwd(*args, _cotangent(dnew, args[7])))
+        return _conv_grads(ctx, k2_inhibition_bwd(*args, _cotangent(dnew, args[7])))
 
 
 class K3Excitation(torch.autograd.Function):
-    """``k3_excitation`` with ``k3_excitation_bwd`` as its backward."""
+    """``k3_excitation`` with ``k3_excitation_bwd`` as its backward; the
+    first input as K2Inhibition's."""
 
     @staticmethod
-    def forward(ctx, *args):
+    def forward(ctx, conv_f32, *args):
         ctx.save_for_backward(*args)
         ctx.set_materialize_grads(False)
+        ctx.via_view = conv_f32 is not None
         return _forward(_k3_op, _k3_impl, args)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dnew):
         args = ctx.saved_tensors
-        return _needed(ctx, k3_excitation_bwd(*args, _cotangent(dnew, args[8])))
+        return _conv_grads(ctx, k3_excitation_bwd(*args, _cotangent(dnew, args[8])))
 
 
 def k1_attention(exc, att_x, a_u, a_u_b):
@@ -495,24 +523,26 @@ def k1_attention(exc, att_x, a_u, a_u_b):
 
 
 def k2_inhibition(conv_i, mean0, rstd0, scale0, bias0, inp, gi_x, inh,
-                  i_u, i_u_b, alpha, mu):
+                  i_u, i_u_b, alpha, mu, *, conv_f32=None):
     """conv_i, inp, gi_x [R,C] bf16; inh [R,C] f32; i_u [C,C] bf16; the
-    rest [C] f32 -> new_inh [R,C] f32."""
+    rest [C] f32 -> new_inh [R,C] f32. ``conv_f32``: ``conv_i.float()``,
+    which then takes conv_i's gradient in f32 (the module docstring)."""
     args = (conv_i, mean0, rstd0, scale0, bias0, inp, gi_x, inh, i_u, i_u_b,
             alpha, mu)
     if _differentiable(args):
-        return K2Inhibition.apply(*args)
+        return K2Inhibition.apply(conv_f32, *args)
     return _forward(_k2_op, _k2_impl, args)
 
 
 def k3_excitation(conv_e, mean1, rstd1, scale1, bias1, new_inh, inh, gated,
-                  exc, e_w, e_w_b, e_u, e_u_b, kappa, gamma):
+                  exc, e_w, e_w_b, e_u, e_u_b, kappa, gamma, *, conv_f32=None):
     """conv_e, gated [R,C] bf16; new_inh, inh, exc [R,C] f32; e_w, e_u
-    [C,C] bf16; the rest [C] f32 -> new_exc [R,C] f32."""
+    [C,C] bf16; the rest [C] f32 -> new_exc [R,C] f32. ``conv_f32`` as
+    ``k2_inhibition``'s."""
     args = (conv_e, mean1, rstd1, scale1, bias1, new_inh, inh, gated, exc,
             e_w, e_w_b, e_u, e_u_b, kappa, gamma)
     if _differentiable(args):
-        return K3Excitation.apply(*args)
+        return K3Excitation.apply(conv_f32, *args)
     return _forward(_k3_op, _k3_impl, args)
 
 

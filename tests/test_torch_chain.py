@@ -12,11 +12,10 @@ the second invocation skips what is done. The matrix's accuracy on two
 configs equals JAX's evaluate_model on the same roots and weights (one
 batch a config: BatchNorm's batch statistics do not depend on the loaders'
 order), its BCE within tests/test_torch_eval.py's atol 1e-3. From the
-JAX package's own stage-A and stage-B checkpoints, the port's stage-A,
-stage-B and stage-C steps with the stages' flags are the JAX package's;
-the port's crossovers kept from the card read as the probe scored them."""
+JAX package's own checkpoints, the port's crossovers kept from the card
+read as the probe scored them. The stage steps from the JAX package's
+checkpoints are tests/test_torch_chain_steps.py's."""
 
-import concurrent.futures
 import contextlib
 import glob
 import gzip
@@ -31,24 +30,16 @@ import subprocess
 import sys
 import types
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-from pathtracker_torch import engine as tengine
 from pathtracker_torch.data import registry as tregistry
-from pathtracker_torch.data.pathtracker import render_batch
 from pathtracker_torch.models.int_init import jax_int_params
 from pathtracker_torch.train import checkpoint as tckpt
 from pathtracker_torch.train import loop as tloop
-from pathtracker_torch.train import steps as T
-from pathtracker_torch.train.torch_import import to_jax_params
-from pathtracker_tpu import engine as jengine
 from pathtracker_tpu.eval import test_model as jtm
 from pathtracker_tpu.train import checkpoint as jckpt
-from pathtracker_tpu.train import steps as J
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
@@ -62,14 +53,6 @@ TAGS = ("A", "B", "C")
 LOSS_ATOL = 1e-3
 TIMEOUT = 300
 WATCHED = ("results", "results_conv", "datasets")  # the repository's own run folders
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _snapshot():
@@ -339,180 +322,6 @@ def test_matrix_matches_jax_evaluate_model(matrix_run, monkeypatch, key):
     acc, loss = matrix_run["results"][key]
     assert acc == jacc
     assert abs(loss - jloss) <= LOSS_ATOL, (loss, jloss)
-
-
-# ------------------------------ stage steps ---------------------------------
-
-JAX_STARTS = {"A": os.path.join(canon.JAX_CHAIN_A, "saved_models",
-                                "model_val_acc_0056_epoch_38_checkpoint.pth.tar"),
-              "B": os.path.join(canon.JAX_CHAIN_A, "saved_models",
-                                "model_val_acc_0099_epoch_59_checkpoint.pth.tar"),
-              "C": canon.JAX_CHAIN_B}
-STEP_BATCH, STEPS = 2, 2
-COS_MIN, NORM_RTOL = 0.75, 0.02
-
-
-@pytest.mark.parametrize("tag", ["A", "B", "C"])
-def test_stage_steps_from_the_jax_chain_match_jax(tag, tmp_path):
-    """From the JAX package's own checkpoint of the stage before, the port's
-    steps with the stage's flags (its rate, C's EMA, --bf16: the fused
-    cell, plain kernel versions here) are the JAX package's (its eager mixed
-    cell), at full width on rendered clips of the stage. On the card the
-    same holds for whole stages (PERF.md §6): from the JAX package's
-    chainB the port's C lands on either cell. A starts from the JAX chainA's
-    last checkpoint on the chance plateau (epoch 38), where the chains part,
-    on the port's eager cell, the cell the JAX chain trained on: on the
-    plateau the recurrent kernels' gradients nearly cancel, and the fused
-    cell's (the JAX package's fused cell's too, held to it below) carry the
-    bf16 rounding of the batch norm's backward, which the eager cells take
-    in f32, as their own noise.
-    Losses at rtol 1e-2 (two clips: a logit's bf16 drift over 64 steps does
-    not average out; on the card's 128 the first loss agreed to 2e-4). The
-    move of the weights from the start, and of C's EMA, as one vector: its
-    length within 2% of JAX's and its cosine with JAX's at least 0.75. A
-    first Adam step is lr * sign(gradient), and on two clips a bf16
-    rounding flips the sign of many near-zero gradients (measured: cosine
-    0.85 at B, 0.97-0.99 at C, lengths within 0.2%); a wrong rate or decay
-    moves the length, a wrong gradient the cosine."""
-    _steps_match(tag, tmp_path, fused=tag != "A", jax_fused=False)
-
-
-# A side's window once run, by (side, stage, fused): the tests below hold
-# the same windows against each other, so each runs once a module.
-_WINDOWS = {}
-
-
-def _window(tag: str, tmp_path, fused: bool, jax_fused: bool):
-    """The port's steps with stage ``tag``'s flags from JAX_STARTS[tag] on
-    its fused or eager cell and the JAX package's on its fused or eager
-    cell, STEPS batches of the stage's rendered clips: the starting
-    weights, the port's steps and JAX's (each a loss and trees)."""
-    length, dist, _, _ = canon.STAGES[tag]
-    args = tloop.parser.parse_args(canon.stage_flags(tag, canon.knobs({}), str(tmp_path),
-                                                     JAX_STARTS[tag]))
-    assert args.bf16 and args.model == "InT" and (args.ema is not None) == (tag == "C")
-    clips, labels = render_batch(11, STEP_BATCH * STEPS, timesteps=length,
-                                 n_distractors=dist, dot_size=2)
-    clips = clips.reshape(STEPS, STEP_BATCH, *clips.shape[1:])
-    labels = labels.astype(np.uint8).reshape(STEPS, STEP_BATCH)
-    port, jax_side = ("port", tag, fused), ("jax", tag, jax_fused)
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        # JAX's steps run on XLA's threads while the port's run on torch's one.
-        jax_run = (None if jax_side in _WINDOWS else
-                   pool.submit(_jax_steps, args, length, clips, labels, jax_fused))
-        if port not in _WINDOWS:
-            _WINDOWS[port] = _port_steps(args, length, clips, labels, fused)
-        if jax_run is not None:
-            _WINDOWS[jax_side] = jax_run.result()
-    start, theirs = _WINDOWS[jax_side]
-    return start, _WINDOWS[port], theirs
-
-
-def _moves(start: dict, mine: dict, theirs: dict) -> dict:
-    """For each tree of a step (weights, C's EMA), the move from ``start``
-    as one vector, ``mine`` against ``theirs``: (cosine, length ratio)."""
-    out = {}
-    for what in theirs:
-        moved = [np.concatenate([(tree[n] - start[n]).ravel() for n in start])
-                 for tree in (mine[what], theirs[what])]
-        out[what] = (float(moved[0] @ moved[1] / np.linalg.norm(moved[0])
-                           / np.linalg.norm(moved[1])),
-                     float(np.linalg.norm(moved[0]) / np.linalg.norm(moved[1])))
-    return out
-
-
-def _steps_match(tag: str, tmp_path, fused: bool, jax_fused: bool):
-    """The port's window (``_window``) against JAX's at the stage-steps
-    tolerances."""
-    start, ours, theirs = _window(tag, tmp_path, fused, jax_fused)
-    for i, ((loss, mine), (jloss, jtrees)) in enumerate(zip(ours, theirs)):
-        np.testing.assert_allclose(loss, jloss, rtol=1e-2, err_msg=f"step {i}")
-        assert sorted(mine) == sorted(jtrees)
-        for what, (cos, ratio) in _moves(start, mine, jtrees).items():
-            assert cos >= COS_MIN and abs(ratio - 1.0) <= NORM_RTOL, (i, what, cos, ratio)
-
-
-def _port_steps(args, length: int, clips, labels, fused: bool):
-    """The port's steps from ``args.ckpt`` on ``clips`` on its fused cell
-    (K1-K3's plain versions here) or its eager mixed cell: each step's
-    loss, weights and (with --ema) EMA weights, by JAX param name."""
-    tm = tengine.load_ckpt(
-        tengine.model_selector(args, length, device="cpu", **({} if fused else {
-            "fused": False})), args.ckpt)
-    assert tm.use_fused == fused
-    topt = T.make_optimizer(args.lr, ema=args.ema)
-    tstep = T.make_train_step(tm, "InT", topt)
-    names = [n for n, p in tm.named_parameters() if p.requires_grad]
-    out = []
-    for i in range(len(clips)):
-        tstats = tstep(clips[i], labels[i])
-        trees = {"weights": to_jax_params(tm.state_dict())}
-        if args.ema is not None:
-            trees["ema"] = to_jax_params(dict(zip(names, T.ema_params(topt))))
-        out.append((tstats["loss"], {w: {n: np.array(v) for n, v in tree.items()}
-                                     for w, tree in trees.items()}))
-    return out
-
-
-def _jax_steps(args, length: int, clips, labels, fused: bool = False):
-    """The JAX package's steps from ``args.ckpt`` on ``clips`` on its eager
-    mixed cell (its default) or its fused one (the Pallas kernels, in
-    interpret mode here): the starting weights, and each step's loss,
-    weights and (with --ema) EMA weights."""
-    jm = jengine.model_selector(args, length)
-    if fused:
-        jm = jm.clone(fused=True)
-    # The checkpoint fills the tree; its shapes are all the template needs.
-    params = jax.eval_shape(jm.init, jax.random.key(0),
-                            jnp.zeros((STEP_BATCH, 3, length, 32, 32)))["params"]
-    params = jengine.load_ckpt(params, args.ckpt)
-    jopt = J.make_optimizer(args.lr, ema=args.ema)
-    jstate = jopt.init(params)
-    jstep = J.make_train_step(jm, "InT", jopt)
-    start = {n: np.asarray(v) for n, v in params.items()}
-    jparams = jax.tree.map(jnp.copy, params)
-    out = []
-    for i in range(len(clips)):
-        jparams, jstate, jstats = jstep(jparams, jstate, jnp.asarray(clips[i]),
-                                        jnp.asarray(labels[i]))
-        trees = {"weights": jparams}
-        if args.ema is not None:
-            trees["ema"] = J.ema_params(jstate)
-        out.append((np.asarray(jstats["loss"]), {w: {n: np.array(v) for n, v in tree.items()}
-                                                 for w, tree in trees.items()}))
-    return start, out
-
-
-def test_fused_cell_at_the_plateau_is_the_jax_packages_fused_cell(tmp_path):
-    """Stage A's steps from the JAX chainA's last checkpoint on the chance
-    plateau (epoch 38) through the port's fused cell (K1-K3's plain
-    versions) are the JAX package's fused cell's (its Pallas kernels, in
-    interpret mode), at the stage-steps tolerances. Against the eager cells
-    they are not (the next test): a property of the fused design both
-    packages share, not a departure of the port."""
-    _steps_match("A", tmp_path, fused=True, jax_fused=True)
-
-
-def test_fused_cells_at_the_plateau_part_from_the_eager_cell(tmp_path):
-    """The gap between the cells on the plateau, pinned: from the JAX
-    chainA's epoch 38, the port's fused steps and the JAX package's fused
-    steps each move the weights more than NORM_RTOL further than the JAX
-    package's eager steps (the cell the JAX chain trained on), by the same
-    amount within NORM_RTOL, where the port's eager steps keep within it
-    (``[A]``). Measured: after two steps 1.0405 (cosine 0.934) port fused,
-    1.0358 (0.938) JAX fused, 1.00002 (0.999997) port eager. The fused
-    cells round the batch norm's backward in bf16, the eager cells in f32
-    (tests/torch_cell_gradients.py, the plateau case, gives the gradients
-    per parameter against f64)."""
-    start, port_fused, jax_eager = _window("A", tmp_path, fused=True, jax_fused=False)
-    _, port_eager, jax_fused = _window("A", tmp_path, fused=False, jax_fused=True)
-    last = {who: _moves(start, steps[-1][1], jax_eager[-1][1])["weights"]
-            for who, steps in (("port fused", port_fused), ("JAX fused", jax_fused),
-                               ("port eager", port_eager))}
-    assert last["port fused"][1] - 1.0 > NORM_RTOL, last
-    assert last["JAX fused"][1] - 1.0 > NORM_RTOL, last
-    assert abs(last["port fused"][1] - last["JAX fused"][1]) <= NORM_RTOL, last
-    assert abs(last["port eager"][1] - 1.0) <= NORM_RTOL, last
 
 
 # ------------------------------ cells, --transfer A --------------------------
@@ -814,6 +623,13 @@ def test_kept_card_chains_are_what_the_report_reads(chain_dir):
     assert os.path.basename(str(loaded["loaded_ckpt"])) == kept["B"]
 
 
+# The JAX package's checkpoints the stage steps (tests/test_torch_chain_steps.py)
+# and the crossovers start from.
+JAX_STARTS = {"A": os.path.join(canon.JAX_CHAIN_A, "saved_models",
+                                "model_val_acc_0056_epoch_38_checkpoint.pth.tar"),
+              "B": os.path.join(canon.JAX_CHAIN_A, "saved_models",
+                                "model_val_acc_0099_epoch_59_checkpoint.pth.tar"),
+              "C": canon.JAX_CHAIN_B}
 CROSS_STARTS = {"B": JAX_STARTS["B"], "C": canon.JAX_CHAIN_B}  # the JAX starts crossed from
 
 

@@ -41,20 +41,12 @@ from pathtracker_tpu.models.int_circuit import InT as JInT
 from pathtracker_tpu.train import checkpoint as jckpt
 from pathtracker_tpu.train import steps as JS
 from pathtracker_tpu.utils.earlystopping import EarlyStopping as JEarlyStopping
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHAIN_CLIPS, CHAIN_BATCH, WINDOW = 20000, 128, 12  # the chain's knobs
 STAGE_DIRS = {"A": "8_1_1", "B": "32_1_5", "C": "64_1_14"}
 PATIENCE = 200  # train/loop.py's EarlyStopping
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """torch on one thread: the test workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("epoch", [0, 1, 37, 59])

@@ -28,6 +28,7 @@ from pathtracker_torch.models.int_circuit import InT as TInT
 from pathtracker_torch.train.torch_import import (export_reference_state_dict,
                                                   to_jax_params)
 from pathtracker_tpu.models.int_circuit import InT as JInT
+from torch_threads import one_thread  # noqa: F401
 
 F32_SHAPE = dict(b=3, c=8, t=5, hw=12, k=5)
 MIXED_SHAPE = dict(b=4, c=32, t=5, hw=16, k=5)

@@ -20,7 +20,12 @@ least 1):
   * weight gradients: 2^-7 * scale. The Pallas kernels round each of the
     four block-diagonal copies' partial sums to bf16 and then add them; the
     port has one block and rounds once, so they differ by up to a bf16 ulp
-    of the largest entry.
+    of the largest entry;
+  * the conv output's gradient of K2 and K3 (the batch norm's direct input
+    cotangent): the port's is f32, unrounded, where Pallas rounds it to
+    bf16; the port's rounded to bf16 is held to Pallas's as a bf16 row
+    gradient, and within one bf16 ulp of it on every element
+    (``test_k2_k3_conv_gradient_is_pallas_unrounded``).
 
 The CUDA kernels themselves are held against the plain versions on the card
 by tests/test_torch_cuda.py.
@@ -38,7 +43,8 @@ from test_torch_kernels import (BF16, C, K1_ARGS, K2_ARGS, K3_ARGS, _inputs,
                                 _jax, _torch)
 
 ROWS = 1024
-_BF16_ROW_GRADS = {"att_x", "inp", "gi_x", "conv_i", "conv_e", "gated"}
+_BF16_ROW_GRADS = {"att_x", "inp", "gi_x", "gated"}
+_F32_CONV_GRADS = {"conv_i", "conv_e"}  # f32 in the port, bf16 in Pallas
 _MATS = {"a_u", "i_u", "e_w", "e_u"}
 
 
@@ -74,8 +80,11 @@ def _check(names, ours, theirs):
             assert a.dtype == torch.float32, name
             assert diff.max() <= 1e-4 * scale, (name, diff.max(), scale)
         else:
-            bf16 = name in _BF16_ROW_GRADS
-            assert a.dtype == (BF16 if bf16 else torch.float32), name
+            bf16 = name in _BF16_ROW_GRADS | _F32_CONV_GRADS
+            assert a.dtype == (BF16 if name in _BF16_ROW_GRADS else torch.float32), name
+            if name in _F32_CONV_GRADS:
+                got = a.to(BF16).float().numpy()
+                diff = np.abs(got - want)
             if bf16:
                 tight = np.spacing(np.maximum(np.abs(got), np.abs(want))) * 2.0 ** 16
             else:
@@ -118,6 +127,34 @@ def test_k3_bwd_plain_matches_pallas():
     _check(K3_ARGS, ours, theirs)
 
 
+@pytest.mark.parametrize("phase", ["k2", "k3"])
+def test_k2_k3_conv_gradient_is_pallas_unrounded(phase):
+    """K2's and K3's gradient for the conv output is the Pallas kernels'
+    before their rounding: f32 here, and rounded to bf16 within one bf16 ulp
+    of Pallas's on every element; the seven per-channel sums beside it
+    (K2: di_u_b, dalpha, dmu and the batch norm's four; K3: the gate
+    biases', dkappa, dgamma and the batch norm's four) as ``_check`` holds
+    them."""
+    names, jfn, plain, seeds = {
+        "k2": (K2_ARGS, J.k2_inhibition, T.k2_inhibition_bwd_plain, (13, 14)),
+        "k3": (K3_ARGS, J.k3_excitation, T.k3_excitation_bwd_plain, (15, 16))}[phase]
+    d = _inputs(ROWS, seed=seeds[0])
+    t, j = _torch(d), _jax(d)
+    dnew = _cotangent(seeds[1])
+    _, vjp = jax.vjp(jfn, *(j[k] for k in names))
+    theirs = vjp(J.pack(jnp.asarray(dnew)))
+    ours = plain(*(t[k] for k in names), torch.tensor(dnew))
+    assert ours[0].dtype == torch.float32
+    want = _fold(names[0], theirs[0])
+    got = ours[0].to(BF16).float().numpy()
+    ulp = np.spacing(np.maximum(np.abs(got), np.abs(want)).astype(np.float32)) * 2.0 ** 16
+    assert np.all(np.abs(got - want) <= ulp), np.abs(got - want).max()
+    vectors = [i for i, g in enumerate(ours) if g.dim() == 1]
+    assert len(vectors) == (8 if phase == "k3" else 7)  # K3's gate biases share a sum
+    _check([names[i] for i in vectors], [ours[i] for i in vectors],
+           [theirs[i] for i in vectors])
+
+
 def _leaves(t, names):
     return [t[k].clone().requires_grad_() for k in names]
 
@@ -150,13 +187,24 @@ def test_k1_function_backward_is_the_plain_backward(use):
     (T.k3_excitation, T.k3_excitation_bwd_plain, K3_ARGS),
 ])
 def test_function_backward_is_the_plain_backward(wrapper, plain_bwd, names):
+    """Every input's gradient is the plain backward's. The conv output's f32
+    gradient goes to its f32 view ``conv_f32`` where one is given (the view's
+    backward then rounds it to the bf16 conv output), else to the conv
+    output, which autograd rounds the same way."""
     t = _torch(_inputs(100, seed=23))
     args = _leaves(t, names)
     dnew = torch.tensor(_cotangent(24)[:100])
-    got = torch.autograd.grad(wrapper(*args), args, dnew)
     want = plain_bwd(*(a.detach() for a in args), dnew)
-    for name, a, b in zip(names, got, want):
-        assert a.dtype == t[name].dtype and torch.equal(a, b), name
+    assert want[0].dtype == torch.float32
+    got = torch.autograd.grad(wrapper(*args), args, dnew)
+    view = args[0].float()
+    dview, *via_view = torch.autograd.grad(wrapper(*args, conv_f32=view),
+                                           [view, *args], dnew)
+    assert torch.equal(dview, want[0])
+    for grads in (got, via_view):
+        assert torch.equal(grads[0], want[0].to(BF16))
+        for name, a, b in zip(names[1:], grads[1:], want[1:]):
+            assert a.dtype == t[name].dtype and torch.equal(a, b), name
 
 
 def test_only_needed_gradients_come_back():
@@ -189,3 +237,4 @@ def test_backward_wrapper_checks_its_cotangent(wrapper, names, extra):
         wrapper(*args, good[:32])
     with pytest.raises(ValueError, match="contiguous"):
         wrapper(*args, torch.cat([good, good], dim=1)[:, ::2])
+

@@ -43,6 +43,7 @@ from pathtracker_torch.train.torch_import import state_dict_from_jax, to_jax_par
 from pathtracker_tpu.models import registry as JR
 from pathtracker_tpu.ops import lstm as jlstm
 from pathtracker_tpu.train import checkpoint as jckpt
+from torch_threads import one_thread  # noqa: F401
 
 B = 2
 ATOL, RTOL = 1e-3, 5e-3
@@ -55,19 +56,6 @@ SHAPES = {
     "ffnet": (4, 8, dict(filt_size=3, width=4)),
 }
 NAMES = tuple(SHAPES)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's LSTMs on the CPU are thousands of tiny steps, each an
-    OpenMP region: on a loaded machine (several test workers on its cores)
-    their threads wait on each other, and one lrcn CLI test took 203 s with
-    torch's default thread count against 15 s with one thread. The module
-    runs on one thread and gives the worker its count back after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _clip(name, seed=0):

@@ -20,6 +20,7 @@ from pathtracker_torch.train import checkpoint as tckpt
 from pathtracker_tpu.eval import serve as jserve
 from pathtracker_tpu.train.checkpoint import load_params as jload_params
 from pathtracker_tpu.train.loop import init_model
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SAVED = os.path.join(ROOT, "results_conv", "64_1_14", "chainE", "saved_models")

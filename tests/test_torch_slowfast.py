@@ -58,6 +58,7 @@ from pathtracker_tpu.models import slowfast_cfg as JC
 from pathtracker_tpu.train import checkpoint as jckpt
 from pathtracker_tpu.train import steps as J
 from pathtracker_tpu.train import torch_import as JI
+from torch_threads import one_thread  # noqa: F401
 
 B, TS, HW = 2, 8, 16
 ATOL, RTOL = 1e-3, 5e-3
@@ -70,16 +71,6 @@ KW = {
     "slow": dict(width=8, stage_blocks=(1, 2, 1, 1)),
 }
 NAMES = tuple(KW)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """torch on one thread, as the other parity files: with several test
-    workers on the cores, OpenMP threads wait on each other in every conv."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _clip(seed=0):

@@ -27,6 +27,7 @@ from pathtracker_torch.train.torch_import import (export_reference_state_dict,
                                                   to_jax_params)
 from pathtracker_tpu.models.int_circuit import InT as JInT
 from pathtracker_tpu.train import steps as J
+from torch_threads import one_thread  # noqa: F401
 
 
 # --------------------------------- schedules ---------------------------------

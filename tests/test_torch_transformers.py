@@ -53,6 +53,7 @@ from pathtracker_tpu.models import vit as JV
 from pathtracker_tpu.ops import favor as JF
 from pathtracker_tpu.train import checkpoint as jckpt
 from pathtracker_tpu.train import steps as J
+from torch_threads import one_thread  # noqa: F401
 
 B, TS, HW = 2, 4, 8
 ATOL, RTOL = 1e-3, 5e-3
@@ -66,16 +67,6 @@ KW = {
     "lambda": (dict(dimensions=8), dict(height=HW, width=HW)),
 }
 NAMES = tuple(KW)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """torch on one thread, as the other parity files: with several test
-    workers on the cores, OpenMP threads wait on each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _clip(seed=0):

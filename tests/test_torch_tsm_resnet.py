@@ -1,8 +1,9 @@
 """pathtracker_torch.models.tsm_resnet against pathtracker_tpu.models.tsm_resnet
 on the same seeded inputs, with the JAX weights carried across: ``_ConvBN``
 (grouped too), both block types, ``_FlowRefinement``, ``_match_to_flow_soft``
-and the whole ``TSMResNet`` (logits and parameter gradients), ``remat``, and
-the four builders' parameter names and shapes.
+and the whole ``TSMResNet`` (logits and parameter gradients), and the four
+builders' parameter names and shapes. ``remat`` and ``fused=False`` against
+the default net are tests/test_torch_tsm_resnet_remat.py's.
 
 Tolerances. Single modules: atol 2e-5 on O(1) outputs (f32 convs and batch
 statistics summed in another order by oneDNN and XLA's CPU backend). The
@@ -33,6 +34,7 @@ from pathtracker_torch.models import tsm_resnet as T
 from pathtracker_torch.train.torch_import import (export_tsm_resnet_state_dict,
                                                   to_jax_params)
 from pathtracker_tpu.models import tsm_resnet as J
+from torch_threads import one_thread  # noqa: F401
 
 ATOL = 2e-5
 
@@ -204,32 +206,6 @@ def test_tsm_resnet_logits_and_gradients_match_jax(block, flow):
           max(worst, key=lambda w: w[1]))
     assert max(w[0] for w in worst) <= 0.1, max(worst)
     assert max(w[1] for w in worst) <= 2e-2, max(worst, key=lambda w: w[1])
-
-
-@pytest.mark.parametrize("block", ["bottleneck", "basic"])
-def test_remat_gives_the_same_logits_and_gradients(block):
-    _, _, plain, x = _pair(block, True)
-    _, _, remat, _ = _pair(block, True, remat=True)
-    l0, g0 = _gradients(plain, x)
-    l1, g1 = _gradients(remat, x)
-    torch.testing.assert_close(l1, l0, rtol=0, atol=0)
-    for name, want in g0.items():
-        torch.testing.assert_close(g1[name], want, rtol=1e-6, atol=1e-7,
-                                   msg=lambda m, name=name: f"{name}: {m}")
-    with torch.no_grad():  # no checkpointing without a gradient
-        torch.testing.assert_close(remat(torch.from_numpy(x)), l0, rtol=0, atol=0)
-
-
-def test_fused_false_takes_the_plain_correlation_with_equal_results():
-    _, _, fused, x = _pair("bottleneck", True)
-    _, _, plain, _ = _pair("bottleneck", True, fused=False)
-    assert fused.fused and not plain.fused
-    l0, g0 = _gradients(plain, x)
-    l1, g1 = _gradients(fused, x)
-    torch.testing.assert_close(l1, l0, rtol=0, atol=1e-6)
-    for name, want in g0.items():
-        scale = max(want.abs().max().item(), 1e-3)
-        torch.testing.assert_close(g1[name] / scale, want / scale, rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("builder", ["resnet18_tsm", "resnet34_tsm", "resnet50_tsm",

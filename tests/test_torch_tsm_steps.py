@@ -53,6 +53,7 @@ from pathtracker_tpu.eval import serve as jserve
 from pathtracker_tpu.models import tsm_resnet as JM
 from pathtracker_tpu.train import steps as J
 from pathtracker_tpu.utils import metrics as jmetrics
+from torch_threads import one_thread  # noqa: F401
 
 B, TS, HW, PATCH, LR = 2, 4, 12, 5, 1e-3
 

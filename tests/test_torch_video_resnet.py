@@ -56,6 +56,7 @@ from pathtracker_torch.train.torch_import import state_dict_from_jax, to_jax_par
 from pathtracker_tpu.models import registry as JR
 from pathtracker_tpu.models import video_resnet as JV
 from pathtracker_tpu.train import checkpoint as jckpt
+from torch_threads import one_thread  # noqa: F401
 
 B, T = 2, 4
 LAYERS = (1, 1, 1, 1)
@@ -65,18 +66,6 @@ BF16_ATOL, BF16_TO_F32 = 1e-2, 2e-2
 NAMES = ("r3d", "mc3", "r2plus1", "nostride_r3d", "nostride_r3d_cc", "nostride_r3d_pos",
          "nostride_video_cc_small")
 TORCHVISION = ("r3d", "mc3", "r2plus1")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """On a loaded machine (several test workers on its cores) torch's
-    OpenMP threads wait on each other in every conv: this module took 235 s
-    there with torch's default thread count against 97 s with one thread.
-    It runs on one thread and gives the worker its count back after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _side(name):

@@ -37,6 +37,7 @@ from pathtracker_torch.train import checkpoint as tckpt
 from pathtracker_torch.train.torch_import import state_dict_from_jax, to_jax_params
 from pathtracker_tpu.models import registry as JR
 from pathtracker_tpu.train import checkpoint as jckpt
+from torch_threads import one_thread  # noqa: F401
 
 B, C, T, HW, K = 3, 8, 5, 12, 5
 CONVLSTM_T = 3

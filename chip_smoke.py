@@ -338,10 +338,11 @@ GRAD_ATOL = 2e-2
 # statistics' part nearly cancel. A first Adam step is about lr * sign(g),
 # so the two cells' other roundings (the fused gate products stay f32)
 # flip near-zero entries: on an H100 80GB HBM3 at 700 W the fused cell
-# measured 1.00476 / 0.98296 (ratio / cosine) at 128 clips a step, 0.99998
-# / 0.98719 at 32 and 1.00241 / 0.99952 at 2, and the same cell with the two
+# measured 1.00476 / 0.98297 (ratio / cosine) at 128 clips a step, 0.99994
+# / 0.98720 at 32 and 1.00241 / 0.99952 at 2, and the same cell with the two
 # cotangent parts rounded to bf16 apart 0.97716 / 0.89339, 1.07928 /
-# 0.79878 and 1.03892 / 0.93462.
+# 0.79878 and 1.03892 / 0.93462 (scripts/torch_bwd_compare.py --phases
+# plateau).
 PLATEAU_CKPT = os.path.join(ROOT, "results_conv", "8_1_1", "chainA", "saved_models",
                             "model_val_acc_0056_epoch_38_checkpoint.pth.tar")
 PLATEAU_T, PLATEAU_DIST, PLATEAU_LR = 8, 1, 2e-3

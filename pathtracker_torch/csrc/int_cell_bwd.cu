@@ -662,9 +662,10 @@ k3_bwd_kernel(const bf16* __restrict__ conv_e, const float* __restrict__ mean1,
           dgpre_[e] = dgpre;
         }
         da[nt / 2][a_reg(nt, half)] = pack_bf16(dgpre_[0], dgpre_[1]);  // rounds once, here
-        *reinterpret_cast<float2*>(&s_dn[fo]) = make_float2(dconv_[0], dconv_[1]);  // f32, as K2's
         *reinterpret_cast<float2*>(&s_ni[fo]) = make_float2(dninh_[0], dninh_[1]);
         *reinterpret_cast<float2*>(&s_e[fo]) = make_float2(dexc_[0], dexc_[1]);
+        // dconv stored last: stored before dninh and dexc it spills 24 B a thread
+        *reinterpret_cast<float2*>(&s_dn[fo]) = make_float2(dconv_[0], dconv_[1]);  // f32, as K2's
       }
     }
 

@@ -43,7 +43,8 @@ output's cotangent in f32; ``k2_inhibition(..., conv_f32=x)`` and
 ``k3_excitation`` hand it to ``x``, the f32 view ``conv.float()`` that
 ``stats`` also reads, so autograd adds the statistics' part to it in f32
 and the view's backward rounds the sum to the conv output's bf16 once, as
-the eager mixed cell's f32 batch norm does. (The Pallas kernels round the
+the eager mixed cell's f32 batch norm does. A conv output that needs a
+gradient without such a view is refused. (The Pallas kernels round the
 direct part to bf16 and the two parts meet in bf16: on InT's chance
 plateau, where they nearly cancel, that rounding is most of what is left.)
 
@@ -397,11 +398,15 @@ def _needed(ctx, grads):
 
 def _conv_grads(ctx, grads):
     """K2's or K3's gradients for (conv_f32, conv, *rest): the f32 conv
-    gradient goes to the f32 view where one was given, else to the bf16
-    conv output (autograd rounds it there)."""
+    gradient goes to the f32 view, never to the bf16 conv output."""
     dconv, *rest = grads
-    to_view = ctx.via_view
-    return _needed(ctx, (dconv if to_view else None, None if to_view else dconv, *rest))
+    return _needed(ctx, (dconv, None, *rest))
+
+
+def _view_for_grad(conv, conv_f32, name):
+    if conv.requires_grad and (conv_f32 is None or not conv_f32.requires_grad):
+        raise ValueError(f"{name}'s gradient goes to its f32 view: pass "
+                         f"conv_f32={name}.float(), the tensor its stats read")
 
 
 # ------------------- the forward phases as custom ops ------------------------
@@ -478,14 +483,13 @@ class K1Attention(torch.autograd.Function):
 
 class K2Inhibition(torch.autograd.Function):
     """``k2_inhibition`` with ``k2_inhibition_bwd`` as its backward. The
-    first input is conv_i's f32 view or None (``_conv_grads``); the kernel
-    reads the bf16 conv_i."""
+    first input is conv_i's f32 view, which takes conv_i's gradient
+    (``_conv_grads``); the kernel reads the bf16 conv_i."""
 
     @staticmethod
     def forward(ctx, conv_f32, *args):
         ctx.save_for_backward(*args)
         ctx.set_materialize_grads(False)
-        ctx.via_view = conv_f32 is not None
         return _forward(_k2_op, _k2_impl, args)
 
     @staticmethod
@@ -503,7 +507,6 @@ class K3Excitation(torch.autograd.Function):
     def forward(ctx, conv_f32, *args):
         ctx.save_for_backward(*args)
         ctx.set_materialize_grads(False)
-        ctx.via_view = conv_f32 is not None
         return _forward(_k3_op, _k3_impl, args)
 
     @staticmethod
@@ -526,10 +529,12 @@ def k2_inhibition(conv_i, mean0, rstd0, scale0, bias0, inp, gi_x, inh,
                   i_u, i_u_b, alpha, mu, *, conv_f32=None):
     """conv_i, inp, gi_x [R,C] bf16; inh [R,C] f32; i_u [C,C] bf16; the
     rest [C] f32 -> new_inh [R,C] f32. ``conv_f32``: ``conv_i.float()``,
-    which then takes conv_i's gradient in f32 (the module docstring)."""
+    which takes conv_i's gradient in f32 (the module docstring); required
+    where conv_i needs a gradient."""
     args = (conv_i, mean0, rstd0, scale0, bias0, inp, gi_x, inh, i_u, i_u_b,
             alpha, mu)
     if _differentiable(args):
+        _view_for_grad(conv_i, conv_f32, "conv_i")
         return K2Inhibition.apply(conv_f32, *args)
     return _forward(_k2_op, _k2_impl, args)
 
@@ -542,6 +547,7 @@ def k3_excitation(conv_e, mean1, rstd1, scale1, bias1, new_inh, inh, gated,
     args = (conv_e, mean1, rstd1, scale1, bias1, new_inh, inh, gated, exc,
             e_w, e_w_b, e_u, e_u_b, kappa, gamma)
     if _differentiable(args):
+        _view_for_grad(conv_e, conv_f32, "conv_e")
         return K3Excitation.apply(conv_f32, *args)
     return _forward(_k3_op, _k3_impl, args)
 

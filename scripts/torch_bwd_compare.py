@@ -27,13 +27,6 @@ builds that checkout's kernels and runs phases of this checkout's
   plateau      chip_smoke.py's phase-6 plateau check (two stage-A steps from
                the JAX chainA's epoch 38 through the fused and the eager
                cell) at 128, 32 and 2 clips a step, printed, not held;
-  trajectory   phase 7's counted run (10 Adam steps from chainE on one
-               batch of 128 rendered clips, T=64, the fused cell) on the
-               batches of render seeds 0-2: the losses, and whether the last
-               is below the first (phase 7 holds seed 0's);
-  gradients    the BCE gradient from chainE on seed 0's batch through the
-               fused and the eager mixed cell, each against the f32 cell's
-               (length ratio and cosine over all parameters), at T=8 and 64.
 Two checkouts are compared only within one run of this script: the same
 card, the same power limit, taking turns.
 """
@@ -120,69 +113,20 @@ def run_one(root: str, phases: list[str]) -> int:
         for batch in (128, 32, 2):
             chip_smoke.PLATEAU_BATCH = batch
             chip_smoke.plateau_check(serve, F)
-    if {"trajectory", "gradients"} & set(phases):
-        trajectory_and_gradients(chip_smoke, serve, phases)
     return 0
-
-
-def trajectory_and_gradients(S, serve, phases: list[str]) -> None:
-    import torch
-
-    from pathtracker_torch.data.pathtracker import render_batch
-    from pathtracker_torch.data.prepare import prepare_batch
-    from pathtracker_torch.train.steps import make_optimizer, make_train_step
-    from pathtracker_torch.utils.metrics import bce_with_logits
-
-    dev = torch.device("cuda")
-    cells = {"fused": dict(bf16=True), "eager": dict(bf16=True, fused=False), "f32": {}}
-
-    def batch(seed):
-        x, y = render_batch(seed, S.BATCH, S.TIMESTEPS, n_distractors=S.DISTRACTORS,
-                            dot_size=S.DOT_SIZE)
-        return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
-
-    if "trajectory" in phases:
-        for seed in range(3):
-            model = serve.build(ckpt=S.CHECKPOINT, length=S.TIMESTEPS, device=dev,
-                                **cells["fused"]).train()
-            step = make_train_step(model, "InT", make_optimizer(S.LEARNING_RATE))
-            clips = batch(seed)
-            losses = [float(step(*clips)["loss"]) for _ in range(S.TRAIN_STEPS)]
-            print(f"trajectory, render seed {seed}: {S.TRAIN_STEPS} fused steps from chainE, "
-                  f"losses {' '.join(f'{v:.4f}' for v in losses)}; the last below the "
-                  f"first: {losses[-1] < losses[0]}", flush=True)
-    if "gradients" in phases:
-        imgs, labels = prepare_batch(*batch(0))
-        for length in (8, 64):
-            grads = {}
-            for cell, kw in cells.items():
-                model = serve.build(ckpt=S.CHECKPOINT, length=length, device=dev, **kw).train()
-                logit = model(imgs[:, :, :length])[0]
-                params = [p for p in model.parameters() if p.requires_grad]
-                g = torch.autograd.grad(bce_with_logits(logit.float().squeeze(-1),
-                                                        labels.float()), params,
-                                        allow_unused=True)
-                grads[cell] = torch.cat([(d if d is not None else torch.zeros_like(p))
-                                         .flatten().double() for d, p in zip(g, params)])
-            ref = grads["f32"]
-            print(f"gradients from chainE, T={length}, against the f32 cell: " + "; ".join(
-                f"{cell} ratio {(v.norm() / ref.norm()).item():.4f}, cosine "
-                f"{(v @ ref / v.norm() / ref.norm()).item():.4f}"
-                for cell, v in grads.items() if cell != "f32"), flush=True)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("roots", nargs="+", help="checkout roots, in running order")
     parser.add_argument("--phases", default="int,correlation",
-                        help="comma-separated: int, correlation, resident, plateau, "
-                        "trajectory, gradients (default int,correlation)")
+                        help="comma-separated: int, correlation, resident, plateau "
+                        "(default int,correlation)")
     parser.add_argument("--one", action="store_true",
                         help="run the single root given, in this process")
     args = parser.parse_args()
     phases = args.phases.split(",")
-    if not set(phases) <= {"int", "correlation", "resident", "plateau", "trajectory",
-                           "gradients"}:
+    if not set(phases) <= {"int", "correlation", "resident", "plateau"}:
         parser.error(f"unknown phases in {args.phases!r}")
     if args.one:
         return run_one(args.roots[0], phases)

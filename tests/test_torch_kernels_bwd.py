@@ -188,23 +188,23 @@ def test_k1_function_backward_is_the_plain_backward(use):
 ])
 def test_function_backward_is_the_plain_backward(wrapper, plain_bwd, names):
     """Every input's gradient is the plain backward's. The conv output's f32
-    gradient goes to its f32 view ``conv_f32`` where one is given (the view's
-    backward then rounds it to the bf16 conv output), else to the conv
-    output, which autograd rounds the same way."""
+    gradient goes to its f32 view ``conv_f32`` (the view's backward then
+    rounds it to the bf16 conv output), and a conv output that needs a
+    gradient without a view that takes one is refused."""
     t = _torch(_inputs(100, seed=23))
     args = _leaves(t, names)
     dnew = torch.tensor(_cotangent(24)[:100])
     want = plain_bwd(*(a.detach() for a in args), dnew)
     assert want[0].dtype == torch.float32
-    got = torch.autograd.grad(wrapper(*args), args, dnew)
     view = args[0].float()
-    dview, *via_view = torch.autograd.grad(wrapper(*args, conv_f32=view),
-                                           [view, *args], dnew)
+    dview, *got = torch.autograd.grad(wrapper(*args, conv_f32=view), [view, *args], dnew)
     assert torch.equal(dview, want[0])
-    for grads in (got, via_view):
-        assert torch.equal(grads[0], want[0].to(BF16))
-        for name, a, b in zip(names[1:], grads[1:], want[1:]):
-            assert a.dtype == t[name].dtype and torch.equal(a, b), name
+    assert torch.equal(got[0], want[0].to(BF16))
+    for name, a, b in zip(names[1:], got[1:], want[1:]):
+        assert a.dtype == t[name].dtype and torch.equal(a, b), name
+    for no_view in ({}, {"conv_f32": view.detach()}):
+        with pytest.raises(ValueError, match="f32 view"):
+            wrapper(*args, **no_view)
 
 
 def test_only_needed_gradients_come_back():
